@@ -11,8 +11,8 @@ Phases; any failure raises, so the exit code is non-zero:
                  versions. No CUDA device is an error.
   2. build     - nvcc builds `qea_ocr_tpu_torch/csrc/*.cu` into
                  `qea_ocr_tpu_torch/_build/`, one process per source.
-  3. kernels   - each of the four kernels against its plain PyTorch version
-                 on the card, at the shapes the training step gives it: the
+  3. kernels   - each of the five kernels against its plain PyTorch version
+                 on the card, at the shapes the main paths give it: the
                  strip gather bitwise (also on a document size the TPU
                  kernel could not take) and its backward to 1e-6 absolute,
                  with boxes that overlap and one that pokes out of the
@@ -24,6 +24,15 @@ Phases; any failure raises, so the exit code is non-zero:
                  call from Python, the plain version's time a call, the
                  device time of `F.ctc_loss` as a yardstick (never on the
                  path), and each kernel's bound from the bytes it must move.
+                 The channel-major conv: the eight convs of one full-width
+                 UNet eval forward (D=8), with the fused shift + ReLU
+                 epilogue and without, and one odd shape (6 -> 5 channels,
+                 24x100), to a relative L2 of 6e-3 with bitwise-zero output
+                 halo rows and garbage on the input's; its gradient (dX
+                 through the same kernel) against the plain version on the
+                 CPU; beside each fused conv the device time of the cuDNN
+                 conv + batch norm + ReLU it replaces, and its bound (bytes,
+                 or bfloat16 operations at the tensor cores' peak).
   4. slice     - inference at full width: UNet(32) and CRNN(hidden 256, V=95)
                  with seeded random weights in the bfloat16 policy:
                  `make_steps(...).val_forward` on 3 batches of 8 synthetic
@@ -45,9 +54,23 @@ Phases; any failure raises, so the exit code is non-zero:
                  finite, the phase-B loss of step 4 not above step 1's,
                  parameters moved, UNet batch statistics moved and the
                  CRNN's not, the CER table written at unmasked ids only, and
-                 all four kernels launched the stated number of times. Then
-                 one float32 `phase_ab` on the card against the same step on
-                 the CPU (plain versions) on 2 documents.
+                 all four kernels launched the stated number of times (the
+                 conv kernel never: the grad model is on the library route).
+                 Then one float32 `phase_ab` on the card against the same
+                 step on the CPU (plain versions) on 2 documents.
+  6. trainer   - the patch trainer through `cli/patch_cli.py:main` at full
+                 width on the card with `QEA_CONV_IMPL=cmajor`: synthetic
+                 data, fake OCR, 16 training and 8 validation documents in
+                 batches of 8 with 16 strip slots, 2 epochs, rangeCER
+                 selection at 0.5, history window 3. The launch counts must
+                 be 8 conv launches for each no-grad UNet forward
+                 (`prep_extract`, `val_forward`) and none from the grad
+                 model, and the four earlier kernels at their counts per
+                 step; the query ledger must equal the budget, the losses be
+                 finite, the side JSONs, PNG and checkpoints exist. The last
+                 checkpoint is reloaded with its optimizer state, and the
+                 twin's eval forward is timed against the vanilla one
+                 (vanilla, twin, twin, vanilla) and held to it.
 
 The line before last is the card's name and power limit, and before it a
 JSON line with each kernel's launches, error, times and bound; the last line
@@ -73,6 +96,8 @@ KERNEL_REL_TOL = 1e-5      # CTC kernels vs plain, relative with a floor of 1
 GATHER_BWD_ATOL = 1e-6     # gather backward vs autograd through the plain one
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
 F32_FLOPS = 67e12          # float32 outside the tensor cores, same sheet
+BF16_FLOPS = 989e12        # bfloat16 tensor cores, dense, same sheet
+CONV_REL_L2 = 6e-3         # conv kernel vs plain: relative L2 error
 REF_ATOL = 1e-4            # f32 card vs f32 CPU: doc_out and strips
 REF_LOSS_RTOL = 1e-4       # f32 card vs f32 CPU: loss
 REF_DECODE_AGREE = 0.95    # f32 card vs f32 CPU: share of identical decodes
@@ -95,9 +120,21 @@ TRAIN_PARAM_LRS = 2.05
 # expected kernel launches: one prep_extract + phase_ab, the micro-stepped
 # phase_ab (2 chunks, refresh) with its prep_extract
 LAUNCHES_PER_STEP = {"gather_fwd": 2, "gather_bwd": 1, "ctc_fwd": 3,
-                     "ctc_bwd": 3}
+                     "ctc_bwd": 3, "conv": 0}
 LAUNCHES_MICRO = {"gather_fwd": 5, "gather_bwd": 2, "ctc_fwd": 6,
-                  "ctc_bwd": 6}
+                  "ctc_bwd": 6, "conv": 0}
+# the trainer phase: 16 training and 8 validation documents in batches of 8,
+# 2 epochs. A trainer step is one prep_extract through the twin (8 conv
+# launches, one gather) and one phase_ab through the grad model (no conv
+# launch; history CTC, one jitter CTC and phase B's CTC, forward and
+# backward); a validation batch is one val_forward through the twin.
+TRAINER_EPOCHS, TRAINER_STEPS, TRAINER_VAL_BATCHES = 2, 2, 1
+CONVS_PER_FORWARD = 8
+LAUNCHES_TRAINER_STEP = {"gather_fwd": 2, "gather_bwd": 1, "ctc_fwd": 3,
+                         "ctc_bwd": 3, "conv": CONVS_PER_FORWARD}
+LAUNCHES_VAL_BATCH = {"gather_fwd": 1, "gather_bwd": 0, "ctc_fwd": 1,
+                      "ctc_bwd": 0, "conv": CONVS_PER_FORWARD}
+TWIN_DOC_ATOL = 2e-2       # twin vs vanilla eval forward, bf16, sigmoid output
 
 
 def log(msg: str) -> None:
@@ -157,11 +194,13 @@ def device_ms(torch, fn, iters: int = 20, spin_ms: float = 10.0) -> float:
     return float(np.median(times))
 
 
-def bound(n_bytes: float, n_flops: float) -> tuple[float, str]:
+def bound(n_bytes: float, n_flops: float,
+          peak_flops: float = F32_FLOPS) -> tuple[float, str]:
     """The least time (ms) the card could take: the larger of the bytes over
-    its memory rate and the float32 operations over its peak rate."""
+    its memory rate and the operations over their peak rate (float32 outside
+    the tensor cores unless `peak_flops` says otherwise)."""
     t_bytes = n_bytes / HBM_BYTES_PER_S
-    t_ops = n_flops / F32_FLOPS
+    t_ops = n_flops / peak_flops
     by = "bytes" if t_bytes >= t_ops else "operations"
     return 1e3 * max(t_bytes, t_ops), by
 
@@ -398,6 +437,174 @@ def check_ctc(torch, dev, card):
     return fwd, bwd
 
 
+# The channel-major convs of one UNet eval forward at full width, D=8:
+# (block, Cin, Cout, H, W), in the order the forward runs them.
+def conv_shapes():
+    f, (H, W) = UNET_FEATURES, DOC_SIZE
+    return [("enc1.1", 1, f, H, W), ("enc1.2", f, f, H, W),
+            ("enc2.1", f, 2 * f, H // 2, W // 2),
+            ("enc2.2", 2 * f, 2 * f, H // 2, W // 2),
+            ("dec2.1", 4 * f, 2 * f, H // 2, W // 2),
+            ("dec2.2", 2 * f, 2 * f, H // 2, W // 2),
+            ("dec1.1", 2 * f, f, H, W), ("dec1.2", f, f, H, W)]
+
+
+def check_conv(torch, dev, card):
+    """The channel-major conv kernel against its plain version: the eight
+    shapes of one full-width UNet eval forward, with and without the fused
+    shift + ReLU epilogue, one odd shape, and the dX route. Returns the
+    kernel's result record: times summed over the eight fused convs (what one
+    eval forward launches), and each shape's own under `shapes`."""
+    import torch.nn.functional as F
+
+    from qea_ocr_tpu_torch.ops import conv_cmajor as cc
+
+    def rel_l2(got, want):
+        return float((got.float() - want.float()).norm()
+                     / want.float().norm().clamp(min=1e-30))
+
+    def halos_zero(yf, h, w):
+        return bool((yf[:, :, :w] == 0).all()) \
+            and bool((yf[:, :, (h + 1) * w:] == 0).all())
+
+    def operands(seed, d, cin, cout, h, w):
+        gen = torch.Generator(device=dev).manual_seed(seed)
+        x = torch.randn((d, cin, h, w), device=dev, generator=gen)
+        xf = cc.pad_flat(x)
+        # halo rows are don't-cares: fill them with garbage
+        xf[:, :, :w] = 1e4
+        xf[:, :, (h + 1) * w:] = -1e4
+        wt = (torch.randn((3, 3, cin, cout), device=dev, generator=gen)
+              / (3.0 * cin ** 0.5))
+        mul = 0.5 + torch.rand((cout,), device=dev, generator=gen)
+        add = 0.3 * torch.randn((cout,), device=dev, generator=gen)
+        return x, xf, wt, mul, add
+
+    worst_abs = worst_rel = 0.0
+    shapes = []
+    cases = [(name, D, cin, cout, h, w, True)
+             for name, cin, cout, h, w in conv_shapes()]
+    cases.append(("odd", 2, 6, 5, 24, 100, False))
+    for i, (name, d, cin, cout, h, w, timed) in enumerate(cases):
+        x, xf, wt, mul, add = operands(30 + i, d, cin, cout, h, w)
+        for fused in (True, False):
+            if fused:
+                run = lambda: cc.conv_flat_bn_relu(xf, wt, mul, add, h, w)
+                w2 = (wt.float() * mul).to(torch.bfloat16)
+                want = cc.conv_flat_plain(xf, w2, add, h, w)
+            else:
+                run = lambda: cc.conv_flat(xf, wt, h, w)
+                want = cc.conv_flat_plain(xf, wt, None, h, w)
+            got = run()
+            torch.cuda.synchronize()
+            if got.shape != want.shape or got.dtype != torch.bfloat16:
+                raise AssertionError(f"conv {name}: output {got.shape} "
+                                     f"{got.dtype}")
+            rel = rel_l2(got, want)
+            err = float((got.float() - want.float()).abs().max())
+            if not rel < CONV_REL_L2 or not halos_zero(got, h, w):
+                raise AssertionError(
+                    f"conv kernel vs plain at {name} fused={fused}: relative "
+                    f"L2 {rel}, halo rows zero {halos_zero(got, h, w)}")
+            worst_abs, worst_rel = max(worst_abs, err), max(worst_rel, rel)
+            if not timed:
+                # the float32 output of the same accumulators
+                got32 = cc._conv_flat(xf, wt, None, h, w, out_f32=True) \
+                    if not fused else None
+                if got32 is not None and not (
+                        got32.dtype == torch.float32
+                        and halos_zero(got32, h, w)
+                        and torch.equal(got32.to(torch.bfloat16), got)):
+                    raise AssertionError("conv kernel: the float32 output "
+                                         "does not round to the bfloat16 one")
+                log(f"[kernels] conv {name} D={d} {cin}->{cout} {h}x{w} "
+                    f"fused={fused}: rel L2 {rel:.3g}, max abs err {err:.3g}, "
+                    f"halo rows bitwise zero")
+                continue
+            ms = device_ms(torch, run, iters=10)
+            if not fused:
+                shapes[-1]["unfused_ms"] = ms
+                log(f"[kernels] conv {name} unfused: rel L2 {rel:.3g}, max "
+                    f"abs err {err:.3g}; kernel {ms:.4f} ms on the device "
+                    f"(median, {card})")
+                continue
+            call_ms = median_ms(torch, run, iters=10)
+            plain_ms = median_ms(
+                torch, lambda: cc.conv_flat_plain(xf, w2, add, h, w),
+                warmup=1, iters=3)
+            # the library's way to the same function: a bfloat16 cuDNN conv,
+            # then batch norm in float32 and ReLU, as the vanilla block does
+            x16 = x.to(torch.bfloat16)
+            w16 = wt.to(torch.bfloat16).permute(3, 2, 0, 1).contiguous()
+            rm, rv = torch.zeros_like(mul), torch.ones_like(mul) - 1e-5
+
+            def library():
+                y = F.conv2d(x16, w16, padding=1).float()
+                return F.relu(F.batch_norm(y, rm, rv, mul, add, False, 0.0,
+                                           1e-5)).to(torch.bfloat16)
+            lib_rel = rel_l2(library(), cc.unflat(want, h, w))
+            if not lib_rel < 2e-2:
+                raise AssertionError(f"the library yardstick computes "
+                                     f"something else at {name}: {lib_rel}")
+            lib_ms = device_ms(torch, library, iters=10)
+            # bytes: the image rows of the input read once, the output with
+            # its halo rows written once, weights and shift; operations: one
+            # multiply-add per tap, input and output channel, and pixel
+            n_bytes = 2 * d * cin * h * w + got.nbytes + 2 * wt.numel() \
+                + 4 * cout
+            n_flops = 2 * 9 * cin * cout * d * h * w
+            b_ms, b_by = bound(n_bytes, n_flops, BF16_FLOPS)
+            shapes.append(dict(name=name, cin=cin, cout=cout, h=h, w=w,
+                               ms=ms, call_ms=call_ms, plain_ms=plain_ms,
+                               library_ms=lib_ms, bound_ms=b_ms,
+                               bound_by=b_by, gflop=n_flops / 1e9,
+                               mbytes=n_bytes / 1e6))
+            log(f"[kernels] conv {name} D={d} {cin}->{cout} {h}x{w} fused: "
+                f"rel L2 {rel:.3g}, max abs err {err:.3g}, halo rows bitwise "
+                f"zero; kernel {ms:.4f} ms on the device, {call_ms:.4f} ms a "
+                f"call from Python; plain {plain_ms:.4f} ms; cuDNN conv + "
+                f"batch norm + ReLU {lib_ms:.4f} ms on the device; bound "
+                f"{b_ms:.4f} ms by {b_by} ({n_bytes / 1e6:.1f} MB, "
+                f"{n_flops / 1e9:.2f} GFLOP) (median, {card})")
+        del x, xf, want, got
+
+    # the gradient: dX through the same kernel on the rotated weights, dW by
+    # a plain weight-gradient convolution; cotangents on the halo rows ignored
+    d, cin, cout, h, w = 2, 6, 5, 24, 100
+    x, xf, wt, _, _ = operands(50, d, cin, cout, h, w)
+    gen = torch.Generator(device=dev).manual_seed(51)
+    gf = torch.randn((d, cout, (h + 2) * w), device=dev, generator=gen)
+    grads = {}
+    for where in ("card", "cpu"):
+        to = (lambda a: a.clone()) if where == "card" else (lambda a: a.cpu())
+        a = to(xf).float().requires_grad_()
+        b = to(wt).requires_grad_()
+        out = cc.conv_flat(a, b, h, w)
+        grads[where] = [t.cpu() for t in torch.autograd.grad(
+            out, (a, b), to(gf).to(out.dtype))]
+    torch.cuda.synchronize()
+    dx_rel = rel_l2(grads["card"][0], grads["cpu"][0])
+    dw_rel = rel_l2(grads["card"][1], grads["cpu"][1])
+    dx = grads["card"][0]
+    if not (dx_rel < CONV_REL_L2 and dw_rel < CONV_REL_L2
+            and halos_zero(dx, h, w)):
+        raise AssertionError(f"conv gradient on the card vs the CPU: dX rel "
+                             f"L2 {dx_rel}, dW {dw_rel}, dX halo rows zero "
+                             f"{halos_zero(dx, h, w)}")
+    log(f"[kernels] conv gradient D={d} {cin}->{cout} {h}x{w}: dX (the kernel "
+        f"on rotated weights) rel L2 {dx_rel:.3g} vs the plain version on the "
+        f"CPU, halo rows bitwise zero, halo cotangents ignored; dW rel L2 "
+        f"{dw_rel:.3g}")
+    total = lambda key: float(sum(s_[key] for s_ in shapes))
+    return dict(ms=total("ms"), call_ms=total("call_ms"),
+                plain_ms=total("plain_ms"), library_ms=total("library_ms"),
+                bound_ms=total("bound_ms"),
+                bound_by=bound(1e6 * total("mbytes"), 1e9 * total("gflop"),
+                               BF16_FLOPS)[1],
+                unfused_ms=total("unfused_ms"), max_abs_err=worst_abs,
+                max_rel_l2=worst_rel, shapes=shapes)
+
+
 def run_slice(torch, dev, card):
     """The inference slice at full width. Returns the kernel launch counts
     of this phase, and the models, charmap and 2 documents for the
@@ -406,7 +613,6 @@ def run_slice(torch, dev, card):
         CharMap, PatchDocuments, collate_docs, doc_batch_to)
     from qea_ocr_tpu_torch.models.crnn import CRNN
     from qea_ocr_tpu_torch.models.unet import UNet
-    from qea_ocr_tpu_torch.ops.cuda import ctc_cuda, gather_cuda
     from qea_ocr_tpu_torch.ops.edit_distance import compare_labels_device
     from qea_ocr_tpu_torch.serve.cleaner import DocumentCleaner
     from qea_ocr_tpu_torch.train.patch_steps import make_steps
@@ -425,7 +631,7 @@ def run_slice(torch, dev, card):
     L = cm.max_len
     N = D * S
 
-    _reset_counts(gather_cuda, ctc_cuda)
+    _reset_counts()
     for i, b in enumerate(batches):
         t = doc_batch_to(b, dev)
         torch.cuda.synchronize()
@@ -473,12 +679,13 @@ def run_slice(torch, dev, card):
         if not np.array_equal(f, u8.astype(np.float32) / 255.0):
             raise AssertionError("clean_arrays is not the uint8 output / 255")
 
-    counts = _counts(gather_cuda, ctc_cuda)
+    counts = _counts()
     log(f"[slice] kernel launches in this phase: {json.dumps(counts)}")
     if min(counts["gather_fwd"], counts["ctc_fwd"]) < 1:
         raise AssertionError(f"a kernel of the path never launched: {counts}")
-    if counts["gather_bwd"] or counts["ctc_bwd"]:
-        raise AssertionError(f"inference launched a backward kernel: {counts}")
+    if counts["gather_bwd"] or counts["ctc_bwd"] or counts["conv"]:
+        raise AssertionError(f"inference launched a backward kernel, or the "
+                             f"library-route UNet the conv kernel: {counts}")
     return counts, unet, crnn, cm, world.samples[:2]
 
 
@@ -532,15 +739,24 @@ def check_reference(torch, dev, unet, crnn, cm, samples):
                              "the stated bound")
 
 
-def _counts(gather_cuda, ctc_cuda) -> dict:
+def _counts() -> dict:
+    """Kernel launches since the last `_reset_counts`, by kernel."""
+    from qea_ocr_tpu_torch.ops.cuda import (
+        conv_cmajor_cuda, ctc_cuda, gather_cuda)
+
     return {"gather_fwd": gather_cuda.launches,
             "gather_bwd": gather_cuda.bwd_launches,
-            "ctc_fwd": ctc_cuda.launches, "ctc_bwd": ctc_cuda.bwd_launches}
+            "ctc_fwd": ctc_cuda.launches, "ctc_bwd": ctc_cuda.bwd_launches,
+            "conv": conv_cmajor_cuda.launches}
 
 
-def _reset_counts(gather_cuda, ctc_cuda) -> None:
+def _reset_counts() -> None:
+    from qea_ocr_tpu_torch.ops.cuda import (
+        conv_cmajor_cuda, ctc_cuda, gather_cuda)
+
     gather_cuda.launches = gather_cuda.bwd_launches = 0
     ctc_cuda.launches = ctc_cuda.bwd_launches = 0
+    conv_cmajor_cuda.launches = 0
 
 
 def _full_width(torch, cm, dev, dtype):
@@ -567,7 +783,6 @@ def _train_steps(unet, crnn, cm):
 def run_train(torch, dev, card, cm):
     """The training path at full width in the bfloat16 policy. Returns the
     kernel launch counts of this phase."""
-    from qea_ocr_tpu_torch.ops.cuda import ctc_cuda, gather_cuda
     from qea_ocr_tpu_torch.tools.bench_batch import (
         bench_batch, extract_and_jitter, phase_ab)
 
@@ -589,15 +804,15 @@ def run_train(torch, dev, card, cm):
         ms = 1e3 * (time.perf_counter() - t0)
         return out, ms
 
-    _reset_counts(gather_cuda, ctc_cuda)
+    _reset_counts()
     losses = []
     for i in range(4):
-        before = _counts(gather_cuda, ctc_cuda)
+        before = _counts()
         (strips, jitter), ms_x = timed(
             lambda: extract_and_jitter(steps, b, gen))
         out, ms = timed(lambda: phase_ab(steps, b, strips, jitter))
         doc_out, metrics, cer_table, ent_table, loss_a = out
-        after = _counts(gather_cuda, ctc_cuda)
+        after = _counts()
         step_counts = {k: after[k] - before[k] for k in after}
         if step_counts != LAUNCHES_PER_STEP:
             raise AssertionError(f"launches in step {i}: {step_counts}, "
@@ -647,11 +862,11 @@ def run_train(torch, dev, card, cm):
         raise AssertionError("cer_table was not written at exactly the "
                              "unmasked strip ids")
 
-    before = _counts(gather_cuda, ctc_cuda)
+    before = _counts()
     (strips, jitter), _ = timed(lambda: extract_and_jitter(steps, b, gen))
     out, ms = timed(lambda: phase_ab(
         steps, b, strips, jitter, micro_steps=2, micro_refresh=True))
-    after = _counts(gather_cuda, ctc_cuda)
+    after = _counts()
     micro_counts = {k: after[k] - before[k] for k in after}
     if micro_counts != LAUNCHES_MICRO:
         raise AssertionError(f"launches in the micro-stepped step: "
@@ -668,7 +883,7 @@ def run_train(torch, dev, card, cm):
     log(f"[train] prep_pretrain_step: loss {float(loss):.4f}; {ms:.2f} ms "
         f"(host clock, synchronised; {card})")
 
-    counts = _counts(gather_cuda, ctc_cuda)
+    counts = _counts()
     log(f"[train] kernel launches in this phase: {json.dumps(counts)}")
     want = {k: 4 * LAUNCHES_PER_STEP[k] + LAUNCHES_MICRO[k] for k in counts}
     if counts != want:
@@ -740,6 +955,138 @@ def check_train_reference(torch, dev, cm):
                              "the CPU's")
 
 
+def run_trainer(torch, dev, card):
+    """The patch trainer through its CLI at full width on the card, the
+    no-grad twin on the channel-major conv kernel. Returns the kernel launch
+    counts of this phase and the twin-vs-vanilla reading."""
+    import glob
+    import os
+    import tempfile
+
+    from qea_ocr_tpu_torch.cli import patch_cli
+    from qea_ocr_tpu_torch.data import PatchDocuments, collate_docs
+    from qea_ocr_tpu_torch.models.unet import UNet
+    from qea_ocr_tpu_torch.train.state import adam_l2
+    from qea_ocr_tpu_torch.utils.io import load_checkpoint
+
+    n_train, n_val, strips_per_doc, prop = 16, 8, 12, 0.5
+    with tempfile.TemporaryDirectory() as exp:
+        argv = ["--device", "cuda", "--ocr", "Fake", "--dataset", "synthetic",
+                "--epoch", str(TRAINER_EPOCHS), "--batch_docs", str(D),
+                "--max_strips", str(S), "--synthetic_train_docs",
+                str(n_train), "--synthetic_val_docs", str(n_val),
+                "--synthetic_strips_per_doc", str(strips_per_doc),
+                "--doc_size", *map(str, DOC_SIZE),
+                "--minibatch_subset", "rangeCER",
+                "--minibatch_subset_prop", str(prop), "--window_size", "3",
+                "--inner_limit", "2", "--inner_limit_skip",
+                "--unet_features", str(UNET_FEATURES),
+                "--lstm_hidden", str(LSTM_HIDDEN), "--exp_base_path", exp]
+        before = os.environ.get("QEA_CONV_IMPL")
+        os.environ["QEA_CONV_IMPL"] = "cmajor"
+        _reset_counts()
+        try:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            patch_cli.main(argv)
+            torch.cuda.synchronize()
+            seconds = time.perf_counter() - t0
+        finally:
+            if before is None:
+                del os.environ["QEA_CONV_IMPL"]
+            else:
+                os.environ["QEA_CONV_IMPL"] = before
+        counts = _counts()
+        want = {k: TRAINER_EPOCHS * (
+            TRAINER_STEPS * LAUNCHES_TRAINER_STEP[k]
+            + TRAINER_VAL_BATCHES * LAUNCHES_VAL_BATCH[k]) for k in counts}
+        log(f"[trainer] kernel launches in this phase: {json.dumps(counts)}")
+        if counts != want:
+            raise AssertionError(f"launches in the trainer phase {counts}, "
+                                 f"expected {want}")
+
+        with open(os.path.join(exp, "metrics.jsonl")) as f:
+            recs = [json.loads(line) for line in f]
+        # the query ledger: per document ceil(12 * (1 - 0.5)) = 6 strips,
+        # queried once clean and once jittered; validation reads every strip
+        train_calls = n_train * int(np.ceil(strips_per_doc * (1 - prop))) * 2
+        val_calls = n_val * strips_per_doc
+        if len(recs) != TRAINER_EPOCHS:
+            raise AssertionError(f"{len(recs)} epochs logged")
+        for i, rec in enumerate(recs):
+            if rec["Black-Box Calls"] != train_calls \
+                    or rec["Train + Val BB Calls"] != train_calls + val_calls \
+                    or rec["Total Train + Val BB Calls"] != \
+                    (i + 1) * (train_calls + val_calls):
+                raise AssertionError(f"query ledger of epoch {i}: {rec}")
+            if not all(np.isfinite(rec[k]) for k in (
+                    "train_loss", "val_loss", "CRNN_loss", "CRNN_CER")):
+                raise AssertionError(f"non-finite losses in epoch {i}: {rec}")
+            log(f"[trainer] epoch {i}: {rec['time/epoch_s']:.2f} s (host "
+                f"clock: {TRAINER_STEPS} steps of {D} documents, side JSONs, "
+                f"validation of {n_val}); train_loss "
+                f"{rec['train_loss']:.4f}, val_loss {rec['val_loss']:.4f}, "
+                f"CRNN_loss {rec['CRNN_loss']:.4f}, OCR queries "
+                f"{rec['Black-Box Calls']} + {val_calls} ({card})")
+        # the trainer's own stage clock, last epoch alone (the totals are
+        # cumulative): host time, each stage ending in a host read or a copy
+        stages = {k[len("time/"):-len("_total_s")]:
+                  recs[-1][k] - recs[-2].get(k, 0.0)
+                  for k in recs[-1] if k.endswith("_total_s")}
+        log(f"[trainer] patch_cli.main: {TRAINER_EPOCHS} epochs with set-up "
+            f"and checkpoints in {seconds:.2f} s; stages of the last epoch "
+            f"(host clock, ms, {TRAINER_STEPS} steps): " + ", ".join(
+                f"{k} {1e3 * v:.1f}" for k, v in sorted(stages.items())))
+        for name in ("tracked_labels/tracked_labels_current.json",
+                     "selected_samples/selected_samples_current.json",
+                     "cers/all_cers.json", "img_out/out_1.png",
+                     "ckpts/CRNN_model_1", "params.txt"):
+            if not os.path.exists(os.path.join(exp, name)):
+                raise AssertionError(f"the trainer did not write {name}")
+
+        # a checkpoint reloads, optimizer state included, and the twin over
+        # it agrees with the vanilla forward
+        ckpt = [p for p in glob.glob(os.path.join(
+            exp, "ckpts", f"Prep_model_{TRAINER_EPOCHS - 1}_*"))
+            if not p.endswith(".optim")][0]
+        vanilla = UNet(init_features=UNET_FEATURES, conv_impl="xla").to(dev)
+        opt = adam_l2(vanilla.parameters(), 5e-5, 5e-4)
+        load_checkpoint(ckpt, vanilla, opt)
+    if not opt.state_dict()["state"]:
+        raise AssertionError("the checkpoint's optimizer state is empty")
+    vanilla.eval()
+    twin = vanilla.twin("cmajor").eval()
+    docs = torch.from_numpy(collate_docs(list(PatchDocuments.synthetic(
+        D, seed=60, n_strips=12, max_strips=S, doc_size=DOC_SIZE))).images
+    ).to(dev)
+    with torch.no_grad():
+        _reset_counts()
+        a, b = vanilla(docs), twin(docs)
+        torch.cuda.synchronize()
+        if _counts()["conv"] != CONVS_PER_FORWARD:
+            raise AssertionError("the twin's forward is not 8 conv launches "
+                                 "and the vanilla one none")
+        diff = float((a - b).abs().max())
+        if not (torch.isfinite(b).all() and diff < TWIN_DOC_ATOL):
+            raise AssertionError(f"twin vs vanilla eval forward: max abs "
+                                 f"difference {diff}")
+        order = (vanilla, twin, twin, vanilla)
+        times = [median_ms(torch, lambda m=m: m(docs), iters=10)
+                 for m in order]
+    vanilla_ms = min(times[0], times[3])
+    twin_ms = min(times[1], times[2])
+    log(f"[trainer] UNet eval forward D={D} {DOC_SIZE} bf16 on the reloaded "
+        f"checkpoint: vanilla (cuDNN) {times[0]:.3f} / {times[3]:.3f} ms, "
+        f"twin (conv kernel) {times[1]:.3f} / {times[2]:.3f} ms (medians of "
+        f"10, CUDA events, order vanilla twin twin vanilla); max abs "
+        f"difference {diff:.3g} ({card})")
+    _reset_counts()
+    return counts, dict(vanilla_ms=vanilla_ms, twin_ms=twin_ms,
+                        max_abs_diff=diff, seconds=seconds,
+                        epoch_s=[r["time/epoch_s"] for r in recs],
+                        last_epoch_stage_s=stages)
+
+
 def main() -> None:
     import torch
 
@@ -766,6 +1113,7 @@ def main() -> None:
 
     gather_fwd, gather_bwd = check_gather(torch, dev, card)
     ctc_fwd, ctc_bwd = check_ctc(torch, dev, card)
+    conv = check_conv(torch, dev, card)
 
     infer_counts, unet, crnn, cm, samples = run_slice(torch, dev, card)
     check_reference(torch, dev, unet, crnn, cm, samples)
@@ -773,13 +1121,21 @@ def main() -> None:
 
     counts = run_train(torch, dev, card, cm)
     check_train_reference(torch, dev, cm)
+    trainer_counts, twin = run_trainer(torch, dev, card)
 
     csrc = "qea_ocr_tpu_torch/csrc/"
     pallas = "qea_ocr_tpu/ops/pallas/"
+    # `launches`: the count of the main path that runs the kernel at its
+    # shapes above, each read from a run that began with the counts at 0: the
+    # training-step phase for the four earlier kernels, the trainer phase
+    # for the conv (the only path through it)
     kernels = [
         {"name": name, "route": "cuda", "source": csrc + source,
-         "replaces": pallas + replaces, "launches": counts[key],
-         "launches_inference": infer_counts[key], **record}
+         "replaces": pallas + replaces,
+         "launches": (trainer_counts if key == "conv" else counts)[key],
+         "launches_inference": infer_counts[key],
+         "launches_train": counts[key],
+         "launches_trainer": trainer_counts[key], **record}
         for key, name, source, replaces, record in (
             ("gather_fwd", "gather_fwd", "gather.cu", "gather_pallas.py:113",
              gather_fwd),
@@ -788,7 +1144,13 @@ def main() -> None:
             ("ctc_fwd", "ctc_alpha_fwd", "ctc.cu", "ctc_pallas.py:42",
              ctc_fwd),
             ("ctc_bwd", "ctc_beta_bwd", "ctc.cu", "ctc_pallas.py:72",
-             ctc_bwd))]
+             ctc_bwd),
+            ("conv", "conv_cmajor", "conv_cmajor.cu", "conv_cmajor.py:95",
+             conv))]
+    for k in kernels:
+        if k["launches"] < 1:
+            raise AssertionError(f"{k['name']} never launched on its path")
+    log(f"[trainer] twin vs vanilla: {json.dumps(twin)}")
     print(json.dumps({"kernels": kernels}))
     print(gpu_line())
     print(json.dumps({"ok": True, "device": {

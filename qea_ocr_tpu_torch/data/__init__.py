@@ -4,8 +4,10 @@ modules), plus the device transfer in `pipeline`."""
 
 from qea_ocr_tpu_torch.data.datasets import PatchDocuments
 from qea_ocr_tpu_torch.data.pipeline import (
-    DocBatch, DocTensors, collate_docs, doc_batch_to, pad_docbatch)
+    DocBatch, DocTensors, batch_iterator, blank_docbatch, collate_docs,
+    default_num_workers, doc_batch_to, pad_docbatch)
 from qea_ocr_tpu_torch.utils.charmap import CharMap
 
 __all__ = ["CharMap", "DocBatch", "DocTensors", "PatchDocuments",
-           "collate_docs", "doc_batch_to", "pad_docbatch"]
+           "batch_iterator", "blank_docbatch", "collate_docs",
+           "default_num_workers", "doc_batch_to", "pad_docbatch"]

@@ -1,5 +1,4 @@
-"""UNet document cleaner (counterpart of the vanilla layout of
-`qea_ocr_tpu/models/unet.py`).
+"""UNet document cleaner (counterpart of `qea_ocr_tpu/models/unet.py`).
 
 Four encoder levels from `init_features` doubling each level, a bottleneck,
 stride-2 transposed-conv upsampling with skip concats, and a 1x1 conv +
@@ -14,18 +13,46 @@ Dtype policy, as in JAX: parameters are float32; convolutions run in
 explicitly; batch norm is applied in float32 to the conv output (running
 statistics in eval mode; batch statistics in train mode, see `batch_norm`)
 and its result cast back to `compute_dtype`; the output sigmoid is float32.
-The tensor-core-only layouts of the JAX package (`mxu_packed`,
-channel-major Pallas blocks) are TPU compute rearrangements of the same
-parameters and are not ported.
+
+Two compute layouts over one set of parameters, chosen by `conv_impl`:
+
+* `"xla"` (the JAX package's name for the library route, kept so that flags
+  and tests carry over): every conv goes to cuDNN through `F.conv2d`;
+* `"cmajor"`: the shallow levels (enc1, enc2, dec2, dec1) stay in the
+  padded-flat channel-major layout `(B, C, (H+2)*W)` and run their 3x3 convs
+  through the hand-written kernel of `ops/conv_cmajor.py`
+  (`flat_block`, the counterpart of `FlatConv3x3` / `FlatBatchNorm` /
+  `FlatUNetBlock`). In eval mode each conv + batch norm + ReLU is one kernel
+  launch (the scale folded into the weights, shift and clamp in the
+  epilogue); in train mode, or with `QEA_CMAJOR_FUSED=0`, the chain is
+  unfused and the batch statistics are sums over all lanes of the conv
+  output, whose halo rows are zeros. The upconvs and the final 1x1 conv
+  (`CMUpconv`, `CMFinalConv`: einsums outside the kernel in the JAX package)
+  are `F.conv_transpose2d` / `F.conv2d`;
+* `"auto"` reads `QEA_CONV_IMPL` when the model is built and resolves to
+  `"xla"` unless it says `cmajor`.
+
+Parameter and buffer names are the same for every value, so one
+`state_dict` serves all. `UNet.twin(conv_impl)` returns a second module that
+holds the *same* parameter and buffer tensors (not copies): the trainer's
+no-grad forwards run through such a twin while the optimizer owns the
+parameters through the first model. The `mxu_packed` space-to-depth twins of
+the JAX package hold no kernel and are not ported.
 """
 
 from __future__ import annotations
 
 import math
+import os
+import warnings
 
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+from qea_ocr_tpu_torch.ops.conv_cmajor import (
+    conv_flat, conv_flat_bn_relu, pad_flat, unflat)
+from qea_ocr_tpu_torch.ops.cuda.conv_cmajor_cuda import grid_fits
 
 
 def reset_parameters(model: nn.Module, generator: torch.Generator) -> None:
@@ -97,6 +124,128 @@ class UNetBlock(nn.Module):
         return x
 
 
+def _fused_by_env() -> bool:
+    return os.environ.get("QEA_CMAJOR_FUSED", "1").strip().lower() not in (
+        "0", "false", "no", "off")
+
+
+def flat_batch_norm(bn: nn.BatchNorm2d, xf: torch.Tensor | None, height: int,
+                    width: int, dtype: torch.dtype, fold: bool = False):
+    """`bn` over the channel axis of a padded-flat tensor (counterpart of
+    `FlatBatchNorm`).
+
+    `xf` must be a flat conv's output: its halo rows are zeros, so the sums
+    over *all* lanes divided by the real element count B*H*W are the exact
+    batch statistics, without a mask pass. The result's halo rows hold
+    `add` (not zeros): a don't-care for the next flat conv, but any other
+    consumer must go through `unflat`. In train mode the running statistics
+    move by flax's rule with the biased batch variance, in place. With
+    `fold` (eval mode only) nothing is applied: the float32 `(mul, add)` are
+    returned for the conv epilogue."""
+    if bn.training:
+        if fold:
+            raise ValueError("fold needs running statistics (eval mode)")
+        n = xf.shape[0] * height * width          # real elements a channel
+        xs = xf.float()
+        mean = xs.sum(dim=(0, 2)) / n
+        var = (xs * xs).sum(dim=(0, 2)) / n - mean * mean
+        with torch.no_grad():
+            bn.running_mean.mul_(1 - bn.momentum).add_(
+                mean, alpha=bn.momentum)
+            bn.running_var.mul_(1 - bn.momentum).add_(var, alpha=bn.momentum)
+            bn.num_batches_tracked += 1
+    else:
+        mean, var = bn.running_mean, bn.running_var
+    mul = bn.weight * torch.rsqrt(var + bn.eps)
+    add = bn.bias - mean * mul
+    if fold:
+        return mul.float(), add.float()
+    return (xf.to(dtype) * mul.to(dtype)[None, :, None]
+            + add.to(dtype)[None, :, None])
+
+
+def flat_block(block: "UNetBlock", xf: torch.Tensor, height: int, width: int,
+               dtype: torch.dtype) -> torch.Tensor:
+    """`block` ((conv3x3 -> BN -> ReLU) x 2) on a padded-flat tensor, staying
+    padded-flat (counterpart of `FlatUNetBlock` with its `FlatConv3x3`s).
+
+    Eval mode folds each batch norm and ReLU into its conv's kernel: two
+    launches a block, no elementwise pass in between, output halo rows zero.
+    `QEA_CMAJOR_FUSED=0` forces the unfused chain; train mode is always
+    unfused (the batch statistics need the conv output) and leaves
+    `relu(add)` on the halo rows."""
+    fuse = not block.training and _fused_by_env()
+    for j in (1, 2):
+        layer = getattr(block, f"{block.prefix}conv{j}")
+        bn = getattr(block, f"{block.prefix}norm{j}")
+        w = layer.weight.permute(2, 3, 1, 0)      # OIHW -> HWIO
+        if fuse:
+            mul, add = flat_batch_norm(bn, None, height, width, dtype,
+                                       fold=True)
+            xf = conv_flat_bn_relu(xf, w, mul, add, height, width)
+        else:
+            xf = F.relu(flat_batch_norm(
+                bn, conv_flat(xf, w, height, width), height, width, dtype))
+    return xf
+
+
+def _flat_pool(xf: torch.Tensor, height: int, width: int) -> torch.Tensor:
+    """Padded-flat (B, C, (H+2)*W) -> 2x2 max-pooled (B, C, H/2, W/2); the
+    halo rows are dropped."""
+    return F.max_pool2d(unflat(xf, height, width), 2)
+
+
+def cmajor_supported(height: int, width: int, init_features: int,
+                     batch: int = 1) -> bool:
+    """Whether the channel-major route covers this geometry. The kernel
+    takes any height, width and channel count; what is left is the UNet's
+    own rule (four 2x2 pools: H and W divisible by 16) and the kernel's
+    launch grid (batch x ceil(Cout / 64) and ceil(H / 8) within 65535)."""
+    if height <= 0 or width <= 0 or height % 16 or width % 16:
+        return False
+    return init_features >= 1 and grid_fits(batch, 2 * init_features, height)
+
+
+def _requested_impl(conv_impl: str) -> tuple[str, bool]:
+    """`conv_impl` -> (`"xla"` or `"cmajor"`, whether the environment chose).
+    `"auto"` defers to `QEA_CONV_IMPL` and resolves to `"xla"` unless that
+    says `cmajor`: the kernel is opt-in, as in the JAX package."""
+    impl, from_env = conv_impl, False
+    if impl == "auto":
+        impl, from_env = os.environ.get("QEA_CONV_IMPL", "auto"), True
+    if impl in ("xla", "auto"):
+        return "xla", from_env
+    if impl != "cmajor":
+        raise ValueError(f"unknown conv_impl {impl!r}: use auto, xla or "
+                         "cmajor")
+    return "cmajor", from_env
+
+
+def _checked_impl(impl: str, from_env: bool, height: int, width: int,
+                  init_features: int, batch: int) -> str:
+    if impl != "cmajor" or cmajor_supported(height, width, init_features,
+                                            batch):
+        return impl
+    what = (f"conv_impl='cmajor' does not cover {batch} documents of "
+            f"{(height, width)} at f={init_features}")
+    if from_env:
+        # a process-wide variable must not abort whichever model meets a
+        # shape outside the route's coverage
+        warnings.warn(f"QEA_CONV_IMPL=cmajor ignored: {what}")
+        return "xla"
+    raise ValueError(what)
+
+
+def resolve_conv_impl(conv_impl: str, height: int, width: int,
+                      init_features: int, batch: int = 1) -> str:
+    """The route a UNet built now with `conv_impl` takes for this geometry:
+    `"xla"` or `"cmajor"`. An explicit `"cmajor"` outside the route's
+    coverage raises; one that came from `QEA_CONV_IMPL` falls back to
+    `"xla"` with a warning."""
+    return _checked_impl(*_requested_impl(conv_impl), height, width,
+                         init_features, batch)
+
+
 class UNet(nn.Module):
     """4-level UNet: (B, 1, H, W) float in [0, 1] -> (B, 1, H, W) float32
     sigmoid output. H and W must be divisible by 16."""
@@ -104,10 +253,16 @@ class UNet(nn.Module):
     def __init__(self, in_channels: int = 1, out_channels: int = 1,
                  init_features: int = 32,
                  compute_dtype: torch.dtype = torch.bfloat16,
-                 generator: torch.Generator | None = None):
+                 generator: torch.Generator | None = None,
+                 conv_impl: str = "auto"):
         super().__init__()
         f = init_features
         self.compute_dtype = compute_dtype
+        self.init_features = f
+        self.in_channels, self.out_channels = in_channels, out_channels
+        # read once, here: a later change of QEA_CONV_IMPL does not reroute
+        # a model that exists
+        self.conv_impl, self._impl_from_env = _requested_impl(conv_impl)
         self.encoder1 = UNetBlock(in_channels, f, "enc1")
         self.encoder2 = UNetBlock(f, f * 2, "enc2")
         self.encoder3 = UNetBlock(f * 2, f * 4, "enc3")
@@ -125,20 +280,78 @@ class UNet(nn.Module):
         reset_parameters(self, generator if generator is not None
                          else torch.Generator().manual_seed(0))
 
+    def twin(self, conv_impl: str = "auto") -> "UNet":
+        """A second UNet over this model's parameters and buffers: the same
+        tensors, not copies, so it sees every optimizer step and every
+        update of the running statistics. It has its own train/eval mode.
+        Make it after the model has reached its device: `Module.to` swaps
+        buffers for new tensors, which would cut the link (`shares_state`
+        tells)."""
+        other = UNet(self.in_channels, self.out_channels, self.init_features,
+                     self.compute_dtype, conv_impl=conv_impl)
+        mine = dict(self.named_modules())
+        for name, sub in other.named_modules():
+            for store in ("_parameters", "_buffers"):
+                getattr(sub, store).update(getattr(mine[name], store))
+        other.train(self.training)
+        return other
+
+    def shares_state(self, other: "UNet") -> bool:
+        """Whether every parameter and buffer is the same tensor in both."""
+        a = dict(self.named_parameters()) | dict(self.named_buffers())
+        b = dict(other.named_parameters()) | dict(other.named_buffers())
+        return a.keys() == b.keys() and all(a[k] is b[k] for k in a)
+
+    def _use_cmajor(self, x: torch.Tensor) -> bool:
+        return _checked_impl(self.conv_impl, self._impl_from_env, x.shape[2],
+                             x.shape[3], self.init_features,
+                             x.shape[0]) == "cmajor"
+
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         dt = self.compute_dtype
+        if self._use_cmajor(x):
+            return self._forward_cmajor(x)
         x = x.to(dt)
         enc1 = self.encoder1(x, dt)
         enc2 = self.encoder2(F.max_pool2d(enc1, 2), dt)
-        enc3 = self.encoder3(F.max_pool2d(enc2, 2), dt)
+        return self._deep_and_decode(enc1, enc2)
+
+    def _deep_levels(self, pool2: torch.Tensor) -> torch.Tensor:
+        """enc3 .. dec3 (always through the library) on pooled enc2."""
+        dt = self.compute_dtype
+        enc3 = self.encoder3(pool2, dt)
         enc4 = self.encoder4(F.max_pool2d(enc3, 2), dt)
         bottleneck = self.bottleneck(F.max_pool2d(enc4, 2), dt)
         dec4 = self.decoder4(torch.cat(
             [conv(self.upconv4, bottleneck, dt), enc4], 1), dt)
-        dec3 = self.decoder3(torch.cat(
+        return self.decoder3(torch.cat(
             [conv(self.upconv3, dec4, dt), enc3], 1), dt)
+
+    def _deep_and_decode(self, enc1, enc2) -> torch.Tensor:
+        dt = self.compute_dtype
+        dec3 = self._deep_levels(F.max_pool2d(enc2, 2))
         dec2 = self.decoder2(torch.cat(
             [conv(self.upconv2, dec3, dt), enc2], 1), dt)
         dec1 = self.decoder1(torch.cat(
             [conv(self.upconv1, dec2, dt), enc1], 1), dt)
         return torch.sigmoid(conv(self.conv, dec1, dt).float())
+
+    def _forward_cmajor(self, x: torch.Tensor) -> torch.Tensor:
+        """The channel-major route: levels 1 and 2 padded-flat through the
+        conv kernel, the deep levels as in `forward`."""
+        dt = self.compute_dtype
+        H, W = x.shape[2:]
+        h2, w2 = H // 2, W // 2
+        e1f = flat_block(self.encoder1, pad_flat(x), H, W, dt)
+        e2f = flat_block(self.encoder2, pad_flat(_flat_pool(e1f, H, W)),
+                         h2, w2, dt)
+        dec3 = self._deep_levels(_flat_pool(e2f, h2, w2).to(dt))
+        u2 = conv(self.upconv2, dec3, dt)                # (B, 2f, H/2, W/2)
+        d2f = flat_block(self.decoder2, pad_flat(torch.cat(
+            [u2, unflat(e2f, h2, w2).to(u2.dtype)], 1)), h2, w2, dt)
+        u1 = conv(self.upconv1, unflat(d2f, h2, w2), dt)       # (B, f, H, W)
+        # after an unfused block e1f's halo rows hold relu(add), not zeros:
+        # a don't-care, the flat conv never reads its input's halo rows
+        d1f = flat_block(self.decoder1, torch.cat(
+            [pad_flat(u1), e1f.to(torch.bfloat16)], 1), H, W, dt)
+        return torch.sigmoid(conv(self.conv, unflat(d1f, H, W), dt).float())

@@ -14,6 +14,8 @@ holds the two equal):
   `weight_ih_l{k}[_reverse]` (4H rows, i,f,g,o); the single flax
   hidden-side bias becomes `bias_hh` with `bias_ih` zero
 * `Dense.kernel` (in, out) -> `Linear.weight` (out, in)
+* HistoryAttention: the embedding table (a flax `constants` entry unless
+  trained), the positional encodings and its two Dense layers
 
 Applied to a JAX state after a training step, the same mapping gives the
 state_dict the port's models should hold after the same step.
@@ -137,6 +139,23 @@ def crnn_state_dict(variables: dict) -> "OrderedDict[str, torch.Tensor]":
     """JAX CRNN `{'params', 'batch_stats'}` (numpy leaves) -> state_dict of
     `qea_ocr_tpu_torch.models.crnn.CRNN`."""
     return _to_torch(state_dict_from_crnn(variables))
+
+
+def attention_state_dict(variables: dict) -> "OrderedDict[str, torch.Tensor]":
+    """JAX HistoryAttention variables (`params`, and `constants` holding the
+    frozen embedding unless it is trained) -> state_dict of
+    `qea_ocr_tpu_torch.models.attention.HistoryAttention`."""
+    params = variables["params"]
+    emb = params["embedding"] if "embedding" in params \
+        else variables["constants"]["embedding"]
+    sd = OrderedDict(
+        embedding=np.asarray(emb),
+        positional_encodings=np.asarray(params["positional_encodings"]))
+    for name in ("Wq", "loss_coef_layer"):
+        sd[f"{name}.weight"] = np.ascontiguousarray(
+            np.asarray(params[name]["kernel"]).T)
+        sd[f"{name}.bias"] = np.asarray(params[name]["bias"])
+    return _to_torch(sd)
 
 
 def load_state_dict_file(path: str) -> "OrderedDict[str, torch.Tensor]":

@@ -14,7 +14,12 @@ strip slots, bfloat16 policy) on the batch of `tools/bench_batch.py`:
   3. a `torch.profiler` trace of `--steps` steps: device time in all and per
      step, the share of a step (part 1's host time) in which the device ran
      nothing, the number of kernel launches, and the heaviest kernels by
-     name.
+     name;
+  4. the UNet eval forward through the library layout and through the
+     channel-major twin (the trainer's no-grad forwards with
+     `QEA_CONV_IMPL=cmajor`): CUDA-event medians taken in turns, and for
+     each the device time, the launches and the heaviest kernels of a
+     profiled run.
 
 Prints a report and, as its last line, one JSON object with every number.
 Needs a CUDA device; there is no CPU mode.
@@ -130,6 +135,35 @@ def stages(unet, crnn, cm, b, strips, jitter, prep_opt, crnn_opt) -> dict:
     return out
 
 
+def kernel_profile(fn, reps: int):
+    """`reps` calls of `fn` under `torch.profiler`: the wall time (ms, host
+    clock with a synchronise) and {kernel name: (device ms, launches)}.
+    Kernels and device copies only: the operator events above them carry the
+    same device time again."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+        wall_ms = 1e3 * (time.perf_counter() - t0)
+    by_name: dict = {}
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            ms, count = by_name.get(e.name, (0.0, 0))
+            by_name[e.name] = (ms + e.time_range.elapsed_us() / 1e3, count + 1)
+    return wall_ms, by_name
+
+
+def heaviest(by_name: dict, n: int) -> list:
+    return [(name[:70], ms, count) for name, (ms, count) in sorted(
+        by_name.items(), key=lambda kv: kv[1][0], reverse=True)[:n]]
+
+
 def main(argv=None) -> None:
     p = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     p.add_argument("--docs", type=int, default=8)
@@ -176,24 +210,7 @@ def main(argv=None) -> None:
     report["stages_ms"] = stages(unet, crnn, cm, b, strips, jitter, prep_opt,
                                  crnn_opt)
 
-    from torch.profiler import ProfilerActivity, profile
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        for _ in range(args.steps):
-            one_step()
-        torch.cuda.synchronize()
-        wall_ms = 1e3 * (time.perf_counter() - t0)
-
-    # kernels and device copies only: the operator events above them carry
-    # the same device time again
-    from torch.autograd import DeviceType
-    by_name: dict = {}
-    for e in prof.events():
-        if e.device_type == DeviceType.CUDA:
-            ms, count = by_name.get(e.name, (0.0, 0))
-            by_name[e.name] = (ms + e.time_range.elapsed_us() / 1e3, count + 1)
+    wall_ms, by_name = kernel_profile(one_step, args.steps)
     busy_ms = sum(ms for ms, _ in by_name.values())
     report["profile"] = {
         "steps": args.steps, "wall_ms": wall_ms, "device_ms": busy_ms,
@@ -204,13 +221,29 @@ def main(argv=None) -> None:
         "device_idle_share": 1.0 - busy_ms / args.steps
         / report["step_host_ms"],
         "device_events": sum(n for _, n in by_name.values()),
-        "top_device_ms": [
-            (name[:70], ms, n) for name, (ms, n) in sorted(
-                by_name.items(), key=lambda kv: kv[1][0], reverse=True)[:12]]}
+        "top_device_ms": heaviest(by_name, 12)}
+
+    unet.eval()
+    twin = unet.twin("cmajor").eval()
+    report["unet_eval_forward"] = {}
+    with torch.no_grad():
+        turns = {"library": [], "twin": []}
+        for name, model in (("library", unet), ("twin", twin),
+                            ("twin", twin), ("library", unet)):
+            turns[name].append(event_ms(lambda: model(b["images"])))
+        for name, model in (("library", unet), ("twin", twin)):
+            _, by_name = kernel_profile(lambda: model(b["images"]), args.steps)
+            report["unet_eval_forward"][name] = {
+                "event_ms": turns[name],
+                "device_ms": sum(ms for ms, _ in by_name.values()) / args.steps,
+                "device_events": sum(n for _, n in by_name.values())
+                // args.steps,
+                "top_device_ms": [(k, ms / args.steps, n // args.steps)
+                                  for k, ms, n in heaviest(by_name, 8)]}
 
     print(f"card: {card}; torch {torch.__version__}")
     for k, v in report.items():
-        if k not in ("stages_ms", "profile"):
+        if k not in ("stages_ms", "profile", "unet_eval_forward"):
             print(f"{k}: {v}")
     for k, v in report["stages_ms"].items():
         print(f"  stage {k}: {v:.3f} ms")
@@ -219,6 +252,12 @@ def main(argv=None) -> None:
             print(f"  profile {k}: {v}")
     for name, ms, count in report["profile"]["top_device_ms"]:
         print(f"  {ms:9.3f} ms  x{count:<6d} {name}")
+    for layout, r in report["unet_eval_forward"].items():
+        print(f"UNet eval forward, {layout}: {r['event_ms']} ms between "
+              f"events; {r['device_ms']:.3f} ms of device time in "
+              f"{r['device_events']} launches")
+        for name, ms, count in r["top_device_ms"]:
+            print(f"  {ms:9.3f} ms  x{count:<6d} {name}")
     print(json.dumps(report))
 
 

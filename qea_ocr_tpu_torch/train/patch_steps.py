@@ -78,8 +78,16 @@ def make_steps(prep_model: nn.Module, crnn_model: nn.Module, charmap, *,
                crnn_optimizer: torch.optim.Optimizer | None = None,
                h_out: int = 32, w_out: int = 128,
                sec_loss_scalar: float = 1.0,
-               phase_a_batch_rows: int = 2048) -> SimpleNamespace:
+               phase_a_batch_rows: int = 2048,
+               prep_eval_model: nn.Module | None = None) -> SimpleNamespace:
     """The step functions over `prep_model` (UNet) and `crnn_model`.
+
+    `prep_eval_model`, if given, is a twin of `prep_model` over the same
+    parameter and buffer tensors (`UNet.twin`) that may take another compute
+    layout (`conv_impl="cmajor"`). The no-grad forwards, `prep_extract` and
+    `val_forward`, run through it; every function that takes a gradient runs
+    through `prep_model`. A twin that does not share `prep_model`'s tensors
+    would read stale weights after the first update, so it is refused.
 
     The optimizers (`train.state.adam_l2`) are needed by the functions that
     update their model only. `phase_a_batch_rows` is the most strip rows
@@ -89,6 +97,13 @@ def make_steps(prep_model: nn.Module, crnn_model: nn.Module, charmap, *,
     are frozen there, so the two give the same numbers."""
     pad_id = charmap.pad_id
     max_len = charmap.max_len
+    if prep_eval_model is None:
+        prep_eval_model = prep_model
+    elif not prep_model.shares_state(prep_eval_model):
+        raise ValueError(
+            "prep_eval_model does not hold prep_model's parameter and buffer "
+            "tensors: build it with prep_model.twin(...) once prep_model is "
+            "on its device")
 
     def _optimizer(opt, name):
         if opt is None:
@@ -126,9 +141,9 @@ def make_steps(prep_model: nn.Module, crnn_model: nn.Module, charmap, *,
         doc_mask = strip_mask.any(dim=1).to(per.dtype)
         return (per_doc * doc_mask).sum() / doc_mask.sum().clamp(min=1.0)
 
-    def _extract(images, bboxes):
+    def _extract(images, bboxes, model=prep_model):
         D, S = bboxes.shape[:2]
-        doc_out = prep_model(images)
+        doc_out = model(images)
         strips = get_text_stack_batch(doc_out, bboxes, h_out, w_out)
         return doc_out, strips.reshape(D * S, 1, h_out, w_out)
 
@@ -138,8 +153,8 @@ def make_steps(prep_model: nn.Module, crnn_model: nn.Module, charmap, *,
         """UNet eval forward + strip gather: (doc_out (D, 1, H, W),
         strips (D*S, 1, h_out, w_out)), no gradient (phase A treats the
         UNet as frozen)."""
-        with _modes(frozen=(prep_model,)):
-            return _extract(images, bboxes)
+        with _modes(frozen=(prep_eval_model,)):
+            return _extract(images, bboxes, prep_eval_model)
 
     # ------------------------------------------------------------------
     def phase_a(strips, bb_mask, hist_labels, hist_lengths, hist_valid,
@@ -331,8 +346,8 @@ def make_steps(prep_model: nn.Module, crnn_model: nn.Module, charmap, *,
         decoded lengths (N,) int32, loss scalar)."""
         D, S = bboxes.shape[:2]
         N = D * S
-        with _modes(frozen=(prep_model, crnn_model)):
-            doc_out, strips = _extract(images, bboxes)
+        with _modes(frozen=(prep_eval_model, crnn_model)):
+            doc_out, strips = _extract(images, bboxes, prep_eval_model)
             scores = crnn_model(strips)
             loss = _per_doc_loss(scores, gt_labels.reshape(N, max_len),
                                  gt_lengths.reshape(N), strip_mask, doc_out)

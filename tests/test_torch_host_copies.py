@@ -88,6 +88,60 @@ def _fake_ocr():
             t_get_ocr_helper(name)
 
 
+def _batch_iterator():
+    kw = dict(seed=3, n_strips=5, max_strips=8, doc_size=(96, 256))
+    jd, td = JPatchDocuments.synthetic(7, **kw), TPatchDocuments.synthetic(7, **kw)
+    for opts in (dict(seed=4, epoch=2), dict(shuffle=False, drop_last=False),
+                 dict(seed=1, indices=np.asarray([5, 0, 3, 6]), num_workers=2,
+                      prefetch=2)):
+        jbs = list(j_pipeline.batch_iterator(jd, 2, j_pipeline.collate_docs,
+                                             **opts))
+        tbs = list(t_pipeline.batch_iterator(td, 2, t_pipeline.collate_docs,
+                                             **opts))
+        assert len(tbs) == len(jbs) > 1
+        for tb, jb in zip(tbs, jbs):
+            _assert_batches_equal(tb, jb)
+    _assert_batches_equal(t_pipeline.blank_docbatch(tbs[0], 3),
+                          j_pipeline.blank_docbatch(jbs[0], 3))
+    assert t_pipeline.default_num_workers() == j_pipeline.default_num_workers()
+    with pytest.raises(NotImplementedError, match="item 12"):
+        next(t_pipeline.batch_iterator(td, 2, t_pipeline.collate_docs,
+                                       host_shard=(0, 2)))
+
+    def boom():
+        yield 1
+        raise KeyError("producer")
+    it = t_pipeline.prefetch_iterator(boom(), depth=1)
+    assert next(it) == 1
+    with pytest.raises(KeyError):
+        next(it)
+
+
+def _ocr_engine():
+    from qea_ocr_tpu.ocr.engine import OcrQueryEngine as JEngine
+    from qea_ocr_tpu_torch.data.synth import make_word_crop
+    from qea_ocr_tpu_torch.ocr.engine import OcrQueryEngine as TEngine
+    rng = np.random.default_rng(6)
+    strips = np.stack([make_word_crop(
+        rng, None, 32, 128, corruption=dict(
+            noise_std=0.05, shading=0.1, salt_pepper=0.0))[0]
+        for _ in range(6)])[:, None]
+    j = JEngine(j_get_ocr_helper("Fake"), JCharMap.default())
+    t = TEngine(t_get_ocr_helper("Fake"), TCharMap.default())
+    for jr, tr in ((j.query(strips), t.query(strips)),
+                   (j.submit(strips[:4]).result(),
+                    t.submit(strips[:4]).result())):
+        assert tr.texts == jr.texts
+        np.testing.assert_array_equal(tr.labels, jr.labels)
+        np.testing.assert_array_equal(tr.lengths, jr.lengths)
+    assert (t.total_calls, t.epoch_calls, t.count_calls) \
+        == (j.total_calls, j.epoch_calls, j.count_calls) == (10, 10, 10)
+    t.reset_epoch()
+    assert t.epoch_calls == 0 and t.total_calls == 10
+    assert len(t.latencies) == 2 and t.latency_histogram()[0].sum() == 2
+    j.shutdown(), t.shutdown()
+
+
 def _random_tree(rng, shapes):
     return {k: _random_tree(rng, v) if isinstance(v, dict)
             else rng.normal(size=v).astype(np.float32)
@@ -152,6 +206,7 @@ def _state_dicts():
 
 
 @pytest.mark.parametrize("case", [_config, _charmap, _documents, _fake_ocr,
-                                  _state_dicts], ids=lambda f: f.__name__[1:])
+                                  _state_dicts, _batch_iterator, _ocr_engine],
+                         ids=lambda f: f.__name__[1:])
 def test_copy_equals_original(case):
     case()

@@ -33,6 +33,12 @@ def test_port_modules_never_import_jax():
     mods = _port_modules() + ["chip_smoke"]
     assert "qea_ocr_tpu_torch.ops.cuda.gather_cuda" in mods
     assert "qea_ocr_tpu_torch.train.patch_steps" in mods
+    for new in ("ops.conv_cmajor", "ops.cuda.conv_cmajor_cuda",
+                "selection.samplers", "selection.api", "tracking.history",
+                "tracking.weights", "models.attention", "ocr.engine",
+                "utils.io", "utils.metrics", "train.patch_trainer",
+                "cli.patch_cli"):
+        assert "qea_ocr_tpu_torch." + new in mods, new
     code = ("import importlib, sys\n"
             f"for m in {mods!r}: importlib.import_module(m)\n"
             "bad = sorted(m for m in sys.modules if m in ('jax', "
@@ -105,7 +111,8 @@ def test_training_path_on_a_cuda_tensor_reaches_the_build(monkeypatch,
     NotImplementedError any more, and takes no quiet detour over the plain
     version either: it goes to build the kernels, and fails there for want
     of nvcc."""
-    from qea_ocr_tpu_torch.ops.cuda import build, ctc_cuda, gather_cuda
+    from qea_ocr_tpu_torch.ops.cuda import (
+        build, conv_cmajor_cuda, ctc_cuda, gather_cuda)
 
     monkeypatch.setenv("PATH", str(tmp_path))
     monkeypatch.setenv("CUDA_HOME", str(tmp_path))
@@ -123,5 +130,52 @@ def test_training_path_on_a_cuda_tensor_reaches_the_build(monkeypatch,
     with pytest.raises(RuntimeError, match="nvcc not found"):
         gather_cuda.text_stack_bwd_cuda(
             _CudaTyped((2, 3, 32, 128), torch.float32), boxes, (2, 1, 64, 64))
+    # the conv: plain, fused, with a float32 output, and as the dX route
+    # calls it (the cotangent as activations, the rotated weights)
+    conv_before = conv_cmajor_cuda.launches
+    xf = _CudaTyped((2, 6, 10 * 16), torch.bfloat16)
+    w9 = _CudaTyped((9, 5, 6), torch.bfloat16)
+    shift = _CudaTyped((5,), torch.float32)
+    for args in ((xf, w9, None, 8, 16), (xf, w9, shift, 8, 16),
+                 (xf, w9, None, 8, 16, True),
+                 (_CudaTyped((2, 5, 10 * 16), torch.bfloat16),
+                  _CudaTyped((9, 6, 5), torch.bfloat16), None, 8, 16)):
+        with pytest.raises(RuntimeError, match="nvcc not found"):
+            conv_cmajor_cuda.conv_flat_cuda(*args)
     assert ctc_cuda.launches == ctc_cuda.bwd_launches == 0
     assert gather_cuda.launches == gather_cuda.bwd_launches == 0
+    assert conv_cmajor_cuda.launches == conv_before
+
+
+def test_conv_dispatch_sends_a_cuda_tensor_to_the_kernel(monkeypatch):
+    """`ops/conv_cmajor.py` chooses by the tensor's device alone: a tensor
+    that says it lies on a CUDA device goes to the kernel's wrapper, forward
+    and (through the autograd function's backward) for dX, never to the
+    plain version."""
+    from qea_ocr_tpu_torch.ops import conv_cmajor as cc
+
+    seen = []
+
+    def fake_kernel(xf, w9, shift, height, width, out_f32=False):
+        seen.append((tuple(w9.shape), shift is not None))
+        return torch.zeros((xf.shape[0], w9.shape[1], xf.shape[2]),
+                           dtype=torch.bfloat16)
+
+    class OnCuda(torch.Tensor):
+        device = torch.device("cuda", 0)
+
+    monkeypatch.setattr(cc.conv_cmajor_cuda, "conv_flat_cuda", fake_kernel)
+    monkeypatch.setattr(cc, "conv_flat_plain", lambda *a, **k: pytest.fail(
+        "the plain version ran for a CUDA tensor"))
+    xf = torch.zeros((1, 6, 5 * 4), dtype=torch.bfloat16).as_subclass(OnCuda)
+    w = torch.zeros((3, 3, 6, 5))
+    cc._conv_flat(xf, w, None, 3, 4)
+    cc._conv_flat(xf, w, torch.zeros(5), 3, 4)
+    cc._conv_flat(torch.zeros((1, 5, 20), dtype=torch.bfloat16
+                              ).as_subclass(OnCuda), cc._rot_w(w), None, 3, 4)
+    assert seen == [((9, 5, 6), False), ((9, 5, 6), True), ((9, 6, 5), False)]
+    with pytest.raises(ValueError, match="no channel-major conv"):
+        class OnMeta(torch.Tensor):
+            device = torch.device("meta")
+        cc._conv_flat(torch.zeros((1, 6, 20)).as_subclass(OnMeta), w, None,
+                      3, 4)
