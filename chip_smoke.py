@@ -134,7 +134,7 @@ LAUNCHES_TRAINER_STEP = {"gather_fwd": 2, "gather_bwd": 1, "ctc_fwd": 3,
                          "ctc_bwd": 3, "conv": CONVS_PER_FORWARD}
 LAUNCHES_VAL_BATCH = {"gather_fwd": 1, "gather_bwd": 0, "ctc_fwd": 1,
                       "ctc_bwd": 0, "conv": CONVS_PER_FORWARD}
-TWIN_DOC_ATOL = 2e-2       # twin vs vanilla eval forward, bf16, sigmoid output
+TWIN_DOC_ATOL = 2e-3       # twin vs vanilla eval forward, bf16, sigmoid output
 
 
 def log(msg: str) -> None:
@@ -508,15 +508,6 @@ def check_conv(torch, dev, card):
                     f"L2 {rel}, halo rows zero {halos_zero(got, h, w)}")
             worst_abs, worst_rel = max(worst_abs, err), max(worst_rel, rel)
             if not timed:
-                # the float32 output of the same accumulators
-                got32 = cc._conv_flat(xf, wt, None, h, w, out_f32=True) \
-                    if not fused else None
-                if got32 is not None and not (
-                        got32.dtype == torch.float32
-                        and halos_zero(got32, h, w)
-                        and torch.equal(got32.to(torch.bfloat16), got)):
-                    raise AssertionError("conv kernel: the float32 output "
-                                         "does not round to the bfloat16 one")
                 log(f"[kernels] conv {name} D={d} {cin}->{cout} {h}x{w} "
                     f"fused={fused}: rel L2 {rel:.3g}, max abs err {err:.3g}, "
                     f"halo rows bitwise zero")
@@ -542,11 +533,21 @@ def check_conv(torch, dev, card):
                 y = F.conv2d(x16, w16, padding=1).float()
                 return F.relu(F.batch_norm(y, rm, rv, mul, add, False, 0.0,
                                            1e-5)).to(torch.bfloat16)
-            lib_rel = rel_l2(library(), cc.unflat(want, h, w))
-            if not lib_rel < 2e-2:
-                raise AssertionError(f"the library yardstick computes "
-                                     f"something else at {name}: {lib_rel}")
+            # the library's cheapest way: one bfloat16 cuDNN conv on the
+            # folded weights with the shift as its bias, and a ReLU in place
+            wf16 = w2.permute(3, 2, 0, 1).contiguous()
+            add16 = add.to(torch.bfloat16)
+
+            def library_folded():
+                return F.conv2d(x16, wf16, add16, padding=1).relu_()
+            for what, fn in (("chain", library), ("folded", library_folded)):
+                lib_rel = rel_l2(fn(), cc.unflat(want, h, w))
+                if not lib_rel < 2e-2:
+                    raise AssertionError(
+                        f"the library yardstick ({what}) computes something "
+                        f"else at {name}: {lib_rel}")
             lib_ms = device_ms(torch, library, iters=10)
+            folded_ms = device_ms(torch, library_folded, iters=10)
             # bytes: the image rows of the input read once, the output with
             # its halo rows written once, weights and shift; operations: one
             # multiply-add per tap, input and output channel, and pixel
@@ -556,14 +557,17 @@ def check_conv(torch, dev, card):
             b_ms, b_by = bound(n_bytes, n_flops, BF16_FLOPS)
             shapes.append(dict(name=name, cin=cin, cout=cout, h=h, w=w,
                                ms=ms, call_ms=call_ms, plain_ms=plain_ms,
-                               library_ms=lib_ms, bound_ms=b_ms,
+                               library_ms=lib_ms,
+                               library_folded_ms=folded_ms, bound_ms=b_ms,
                                bound_by=b_by, gflop=n_flops / 1e9,
                                mbytes=n_bytes / 1e6))
             log(f"[kernels] conv {name} D={d} {cin}->{cout} {h}x{w} fused: "
                 f"rel L2 {rel:.3g}, max abs err {err:.3g}, halo rows bitwise "
                 f"zero; kernel {ms:.4f} ms on the device, {call_ms:.4f} ms a "
                 f"call from Python; plain {plain_ms:.4f} ms; cuDNN conv + "
-                f"batch norm + ReLU {lib_ms:.4f} ms on the device; bound "
+                f"batch norm + ReLU {lib_ms:.4f} ms, cuDNN conv on folded "
+                f"weights with bias + ReLU {folded_ms:.4f} ms on the device; "
+                f"bound "
                 f"{b_ms:.4f} ms by {b_by} ({n_bytes / 1e6:.1f} MB, "
                 f"{n_flops / 1e9:.2f} GFLOP) (median, {card})")
         del x, xf, want, got
@@ -598,6 +602,7 @@ def check_conv(torch, dev, card):
     total = lambda key: float(sum(s_[key] for s_ in shapes))
     return dict(ms=total("ms"), call_ms=total("call_ms"),
                 plain_ms=total("plain_ms"), library_ms=total("library_ms"),
+                library_folded_ms=total("library_folded_ms"),
                 bound_ms=total("bound_ms"),
                 bound_by=bound(1e6 * total("mbytes"), 1e9 * total("gflop"),
                                BF16_FLOPS)[1],

@@ -3,7 +3,7 @@
 //   Y[d, co, y, x] = sum_{dy, dx, ci} Wt[dy, dx, co, ci] * X[d, ci, y+dy-1, x+dx-1]
 //
 // with bfloat16 operands, float32 accumulation, an optional epilogue
-// relu(y + shift[co]) on the accumulator, and a bfloat16 (or float32) output.
+// relu(y + shift[co]) on the accumulator, and a bfloat16 output.
 // Activations are (D, C, (H+2)*W): every channel plane carries one halo row
 // above and one below the image. The input's halo rows are never read (they
 // count as zeros, whatever they hold); the output's halo rows are written as
@@ -74,14 +74,9 @@ __device__ __forceinline__ uint32_t pack2(__nv_bfloat16 lo, __nv_bfloat16 hi) {
          ((uint32_t)__bfloat16_as_ushort(hi) << 16);
 }
 
-template <typename T>
-__device__ __forceinline__ void store_pair(T* out, size_t at, float v0,
-                                           float v1, bool second, bool paired);
-
-template <>
-__device__ __forceinline__ void store_pair<__nv_bfloat16>(
-    __nv_bfloat16* out, size_t at, float v0, float v1, bool second,
-    bool paired) {
+__device__ __forceinline__ void store_pair(__nv_bfloat16* out, size_t at,
+                                           float v0, float v1, bool second,
+                                           bool paired) {
   if (second && paired) {
     *reinterpret_cast<__nv_bfloat162*>(out + at) =
         __floats2bfloat162_rn(v0, v1);
@@ -91,26 +86,15 @@ __device__ __forceinline__ void store_pair<__nv_bfloat16>(
   }
 }
 
-template <>
-__device__ __forceinline__ void store_pair<float>(float* out, size_t at,
-                                                  float v0, float v1,
-                                                  bool second, bool paired) {
-  if (second && paired) {
-    *reinterpret_cast<float2*>(out + at) = make_float2(v0, v1);
-  } else {
-    out[at] = v0;
-    if (second) out[at + 1] = v1;
-  }
-}
-
 // x (D, Cin, (H+2)*W) bf16; w (9, Cout, Cin) bf16, tap = 3*dy + dx;
-// shift (Cout) f32 or null; out (D, Cout, (H+2)*W) of T.
+// shift (Cout) f32 or null; out (D, Cout, (H+2)*W) bf16.
 // grid (ceil(W/32), ceil(H/8), D * co_chunks), 256 threads.
-template <int MT, typename T>
+template <int MT>
 __global__ void __launch_bounds__(THREADS)
 conv_cmajor_kernel(const __nv_bfloat16* __restrict__ x,
                    const __nv_bfloat16* __restrict__ w,
-                   const float* __restrict__ shift, T* __restrict__ out,
+                   const float* __restrict__ shift,
+                   __nv_bfloat16* __restrict__ out,
                    int Cin, int Cout, int H, int W, int co_chunks) {
   constexpr int CO = 16 * MT;      // output channels per block
   __shared__ __align__(16) __nv_bfloat16 xs[XR * XC * CKP];
@@ -201,7 +185,7 @@ conv_cmajor_kernel(const __nv_bfloat16* __restrict__ x,
 
   // epilogue: thread (g, t) holds, per tile, channels g and g+8 at the two
   // pixels 2t and 2t+1
-  T* oimg = out + (size_t)d * Cout * plane;
+  __nv_bfloat16* oimg = out + (size_t)d * Cout * plane;
   const bool paired = (W & 1) == 0;   // then every pair is aligned
   const int y = y0 + warp;
   if (y < H) {
@@ -221,8 +205,8 @@ conv_cmajor_kernel(const __nv_bfloat16* __restrict__ x,
             v0 = fmaxf(v0 + s, 0.0f);
             v1 = fmaxf(v1 + s, 0.0f);
           }
-          store_pair<T>(oimg, (size_t)co * plane + (size_t)(y + 1) * W + px,
-                        v0, v1, px + 1 < W, paired);
+          store_pair(oimg, (size_t)co * plane + (size_t)(y + 1) * W + px, v0,
+                     v1, px + 1 < W, paired);
         }
       }
     }
@@ -233,48 +217,38 @@ conv_cmajor_kernel(const __nv_bfloat16* __restrict__ x,
     for (int item = tid; item < CO * TW; item += THREADS) {
       const int co = co0 + item / TW, px = x0 + item % TW;
       if (co >= Cout || px >= W) continue;
-      T* p = oimg + (size_t)co * plane + px;
-      if (top) p[0] = T(0.0f);
-      if (bottom) p[(size_t)(H + 1) * W] = T(0.0f);
+      __nv_bfloat16* p = oimg + (size_t)co * plane + px;
+      if (top) p[0] = zero;
+      if (bottom) p[(size_t)(H + 1) * W] = zero;
     }
   }
 }
 
-template <int MT, typename T>
+template <int MT>
 void launch(const void* x, const void* w, const float* shift, void* out,
             int D, int Cin, int Cout, int H, int W, cudaStream_t stream) {
   const int co_chunks = (Cout + 16 * MT - 1) / (16 * MT);
   const dim3 grid((W + TW - 1) / TW, (H + TH - 1) / TH, D * co_chunks);
-  conv_cmajor_kernel<MT, T><<<grid, THREADS, 0, stream>>>(
+  conv_cmajor_kernel<MT><<<grid, THREADS, 0, stream>>>(
       static_cast<const __nv_bfloat16*>(x),
-      static_cast<const __nv_bfloat16*>(w), shift, static_cast<T*>(out), Cin,
-      Cout, H, W, co_chunks);
-}
-
-template <typename T>
-void launch_for(const void* x, const void* w, const float* shift, void* out,
-                int D, int Cin, int Cout, int H, int W, cudaStream_t stream) {
-  if (Cout <= 16)
-    launch<1, T>(x, w, shift, out, D, Cin, Cout, H, W, stream);
-  else if (Cout <= 32)
-    launch<2, T>(x, w, shift, out, D, Cin, Cout, H, W, stream);
-  else
-    launch<4, T>(x, w, shift, out, D, Cin, Cout, H, W, stream);
+      static_cast<const __nv_bfloat16*>(w), shift,
+      static_cast<__nv_bfloat16*>(out), Cin, Cout, H, W, co_chunks);
 }
 
 }  // namespace
 
 // x (D, Cin, (H+2)*W) bf16, w (9, Cout, Cin) bf16, shift (Cout) f32 or null
-// (null: no epilogue), out (D, Cout, (H+2)*W) bf16, or f32 when out_f32.
+// (null: no epilogue), out (D, Cout, (H+2)*W) bf16.
 // The caller keeps D * ceil(Cout / 64) and ceil(H / 8) within 65535.
 extern "C" int qea_conv_cmajor(const void* x, const void* w,
                                const float* shift, void* out, int D, int Cin,
-                               int Cout, int H, int W, int out_f32,
-                               cudaStream_t stream) {
-  if (out_f32)
-    launch_for<float>(x, w, shift, out, D, Cin, Cout, H, W, stream);
+                               int Cout, int H, int W, cudaStream_t stream) {
+  if (Cout <= 16)
+    launch<1>(x, w, shift, out, D, Cin, Cout, H, W, stream);
+  else if (Cout <= 32)
+    launch<2>(x, w, shift, out, D, Cin, Cout, H, W, stream);
   else
-    launch_for<__nv_bfloat16>(x, w, shift, out, D, Cin, Cout, H, W, stream);
+    launch<4>(x, w, shift, out, D, Cin, Cout, H, W, stream);
   return (int)cudaGetLastError();
 }
 

@@ -32,6 +32,10 @@ Two compute layouts over one set of parameters, chosen by `conv_impl`:
 * `"auto"` reads `QEA_CONV_IMPL` when the model is built and resolves to
   `"xla"` unless it says `cmajor`.
 
+A `"cmajor"` model given a geometry outside `cmajor_supported` raises,
+whether the argument or the environment chose the route: it never gives way
+to the library route.
+
 Parameter and buffer names are the same for every value, so one
 `state_dict` serves all. `UNet.twin(conv_impl)` returns a second module that
 holds the *same* parameter and buffer tensors (not copies): the trainer's
@@ -44,7 +48,6 @@ from __future__ import annotations
 
 import math
 import os
-import warnings
 
 import torch
 import torch.nn.functional as F
@@ -206,44 +209,29 @@ def cmajor_supported(height: int, width: int, init_features: int,
     return init_features >= 1 and grid_fits(batch, 2 * init_features, height)
 
 
-def _requested_impl(conv_impl: str) -> tuple[str, bool]:
-    """`conv_impl` -> (`"xla"` or `"cmajor"`, whether the environment chose).
-    `"auto"` defers to `QEA_CONV_IMPL` and resolves to `"xla"` unless that
-    says `cmajor`: the kernel is opt-in, as in the JAX package."""
-    impl, from_env = conv_impl, False
+def resolve_conv_impl(conv_impl: str, height: int | None = None,
+                      width: int | None = None, init_features: int = 1,
+                      batch: int = 1) -> str:
+    """`conv_impl` -> the route a UNet built now with it takes: `"xla"` or
+    `"cmajor"`. `"auto"` defers to `QEA_CONV_IMPL` and resolves to `"xla"`
+    unless that says `cmajor`: the kernel is opt-in, as in the JAX package.
+    With a geometry, `"cmajor"` outside the route's coverage raises, whether
+    the argument or the environment asked for it: the kernel's caller does
+    not give way to the library route."""
+    impl = conv_impl
     if impl == "auto":
-        impl, from_env = os.environ.get("QEA_CONV_IMPL", "auto"), True
+        impl = os.environ.get("QEA_CONV_IMPL", "auto")
     if impl in ("xla", "auto"):
-        return "xla", from_env
+        return "xla"
     if impl != "cmajor":
         raise ValueError(f"unknown conv_impl {impl!r}: use auto, xla or "
                          "cmajor")
-    return "cmajor", from_env
-
-
-def _checked_impl(impl: str, from_env: bool, height: int, width: int,
-                  init_features: int, batch: int) -> str:
-    if impl != "cmajor" or cmajor_supported(height, width, init_features,
-                                            batch):
-        return impl
-    what = (f"conv_impl='cmajor' does not cover {batch} documents of "
-            f"{(height, width)} at f={init_features}")
-    if from_env:
-        # a process-wide variable must not abort whichever model meets a
-        # shape outside the route's coverage
-        warnings.warn(f"QEA_CONV_IMPL=cmajor ignored: {what}")
-        return "xla"
-    raise ValueError(what)
-
-
-def resolve_conv_impl(conv_impl: str, height: int, width: int,
-                      init_features: int, batch: int = 1) -> str:
-    """The route a UNet built now with `conv_impl` takes for this geometry:
-    `"xla"` or `"cmajor"`. An explicit `"cmajor"` outside the route's
-    coverage raises; one that came from `QEA_CONV_IMPL` falls back to
-    `"xla"` with a warning."""
-    return _checked_impl(*_requested_impl(conv_impl), height, width,
-                         init_features, batch)
+    if height is not None and not cmajor_supported(height, width,
+                                                   init_features, batch):
+        raise ValueError(f"conv_impl='cmajor' does not cover {batch} "
+                         f"documents of {(height, width)} at "
+                         f"f={init_features}")
+    return "cmajor"
 
 
 class UNet(nn.Module):
@@ -262,7 +250,7 @@ class UNet(nn.Module):
         self.in_channels, self.out_channels = in_channels, out_channels
         # read once, here: a later change of QEA_CONV_IMPL does not reroute
         # a model that exists
-        self.conv_impl, self._impl_from_env = _requested_impl(conv_impl)
+        self.conv_impl = resolve_conv_impl(conv_impl)
         self.encoder1 = UNetBlock(in_channels, f, "enc1")
         self.encoder2 = UNetBlock(f, f * 2, "enc2")
         self.encoder3 = UNetBlock(f * 2, f * 4, "enc3")
@@ -303,9 +291,8 @@ class UNet(nn.Module):
         return a.keys() == b.keys() and all(a[k] is b[k] for k in a)
 
     def _use_cmajor(self, x: torch.Tensor) -> bool:
-        return _checked_impl(self.conv_impl, self._impl_from_env, x.shape[2],
-                             x.shape[3], self.init_features,
-                             x.shape[0]) == "cmajor"
+        return resolve_conv_impl(self.conv_impl, x.shape[2], x.shape[3],
+                                 self.init_features, x.shape[0]) == "cmajor"
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         dt = self.compute_dtype

@@ -60,8 +60,8 @@ def supports(x_shape, w_shape) -> bool:
 
 
 def conv_flat_plain(xf: torch.Tensor, w: torch.Tensor,
-                    shift: torch.Tensor | None, height: int, width: int,
-                    out_f32: bool = False) -> torch.Tensor:
+                    shift: torch.Tensor | None, height: int,
+                    width: int) -> torch.Tensor:
     """The plain version: `F.conv2d` in float32 on the bfloat16-quantised
     operands, then the epilogue relu(y + shift) when `shift` is given, the
     cast, and the zero halo rows. xf (D, Cin, (H+2)*W), w (3, 3, Cin, Cout)."""
@@ -70,12 +70,12 @@ def conv_flat_plain(xf: torch.Tensor, w: torch.Tensor,
     y = F.conv2d(x, w_oihw, padding=1)
     if shift is not None:
         y = F.relu(y + shift.float()[None, :, None, None])
-    y = y.to(torch.float32 if out_f32 else torch.bfloat16)
+    y = y.to(torch.bfloat16)
     return F.pad(y, (0, 0, 1, 1)).reshape(y.shape[0], y.shape[1], -1)
 
 
 def _conv_flat(xf: torch.Tensor, w: torch.Tensor, shift: torch.Tensor | None,
-               height: int, width: int, out_f32: bool = False) -> torch.Tensor:
+               height: int, width: int) -> torch.Tensor:
     """Dispatch by the device of `xf`; no gradient."""
     if tuple(w.shape[:3]) != (3, 3, xf.shape[1]):
         raise ValueError(f"weights {tuple(w.shape)} do not fit activations "
@@ -84,7 +84,7 @@ def _conv_flat(xf: torch.Tensor, w: torch.Tensor, shift: torch.Tensor | None,
         raise ValueError(f"activations {tuple(xf.shape)} are not padded-flat "
                          f"for a {height}x{width} image")
     if xf.device.type == "cpu":
-        return conv_flat_plain(xf, w, shift, height, width, out_f32)
+        return conv_flat_plain(xf, w, shift, height, width)
     if xf.device.type == "cuda":
         cin, cout = w.shape[2:]
         w9 = w.to(torch.bfloat16).permute(0, 1, 3, 2).reshape(
@@ -92,7 +92,7 @@ def _conv_flat(xf: torch.Tensor, w: torch.Tensor, shift: torch.Tensor | None,
         return conv_cmajor_cuda.conv_flat_cuda(
             xf.to(torch.bfloat16).contiguous(), w9,
             None if shift is None else shift.float().contiguous(),
-            height, width, out_f32)
+            height, width)
     raise ValueError(f"no channel-major conv for device {xf.device}")
 
 

@@ -24,7 +24,7 @@ def _lib() -> ctypes.CDLL:
     lib = build.load("conv_cmajor")
     fn = lib.qea_conv_cmajor
     if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [
+        fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 + [
             ctypes.c_void_p]
         fn.restype = ctypes.c_int
         lib.qea_conv_cmajor_error_string.argtypes = [ctypes.c_int]
@@ -39,13 +39,12 @@ def grid_fits(batch: int, cout: int, height: int) -> bool:
 
 
 def conv_flat_cuda(xf: torch.Tensor, w9: torch.Tensor,
-                   shift: torch.Tensor | None, height: int, width: int,
-                   out_f32: bool = False) -> torch.Tensor:
+                   shift: torch.Tensor | None, height: int,
+                   width: int) -> torch.Tensor:
     """Launch the kernel: xf (D, Cin, (H+2)*W) bfloat16, w9 (9, Cout, Cin)
     bfloat16 with tap = 3*dy + dx, shift (Cout,) float32 or None (None: no
     epilogue; else relu(y + shift)), all contiguous on one CUDA device
-    -> (D, Cout, (H+2)*W) bfloat16 (float32 when `out_f32`) with zero halo
-    rows. No gradient: `ops/conv_cmajor.py` carries it."""
+    -> (D, Cout, (H+2)*W) bfloat16 with zero halo rows. No gradient: `ops/conv_cmajor.py` carries it."""
     global launches
     if xf.dtype != torch.bfloat16 or w9.dtype != torch.bfloat16 or (
             shift is not None and shift.dtype != torch.float32):
@@ -73,8 +72,7 @@ def conv_flat_cuda(xf: torch.Tensor, w9: torch.Tensor,
         raise ValueError(f"conv kernel grid overflow: D={D}, Cout={cout}, "
                          f"H={height}")
     lib = _lib()
-    out = torch.empty((D, cout, (height + 2) * width),
-                      dtype=torch.float32 if out_f32 else torch.bfloat16,
+    out = torch.empty((D, cout, (height + 2) * width), dtype=torch.bfloat16,
                       device=xf.device)
     if out.numel() == 0:
         return out
@@ -85,7 +83,7 @@ def conv_flat_cuda(xf: torch.Tensor, w9: torch.Tensor,
         rc = lib.qea_conv_cmajor(
             xf.data_ptr(), w9.data_ptr(),
             None if shift is None else shift.data_ptr(), out.data_ptr(),
-            D, cin, cout, height, width, int(out_f32), stream)
+            D, cin, cout, height, width, stream)
     if rc != 0:
         raise RuntimeError("conv kernel launch failed: "
                            + lib.qea_conv_cmajor_error_string(rc).decode())

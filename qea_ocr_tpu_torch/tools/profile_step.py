@@ -17,9 +17,9 @@ strip slots, bfloat16 policy) on the batch of `tools/bench_batch.py`:
      name;
   4. the UNet eval forward through the library layout and through the
      channel-major twin (the trainer's no-grad forwards with
-     `QEA_CONV_IMPL=cmajor`): CUDA-event medians taken in turns, and for
-     each the device time, the launches and the heaviest kernels of a
-     profiled run.
+     `QEA_CONV_IMPL=cmajor`): for each the device time, the launches and
+     the heaviest kernels of a profiled run (`chip_smoke.py` times the two
+     forwards against each other).
 
 Prints a report and, as its last line, one JSON object with every number.
 Needs a CUDA device; there is no CPU mode.
@@ -227,14 +227,10 @@ def main(argv=None) -> None:
     twin = unet.twin("cmajor").eval()
     report["unet_eval_forward"] = {}
     with torch.no_grad():
-        turns = {"library": [], "twin": []}
-        for name, model in (("library", unet), ("twin", twin),
-                            ("twin", twin), ("library", unet)):
-            turns[name].append(event_ms(lambda: model(b["images"])))
         for name, model in (("library", unet), ("twin", twin)):
+            model(b["images"])                      # warm-up
             _, by_name = kernel_profile(lambda: model(b["images"]), args.steps)
             report["unet_eval_forward"][name] = {
-                "event_ms": turns[name],
                 "device_ms": sum(ms for ms, _ in by_name.values()) / args.steps,
                 "device_events": sum(n for _, n in by_name.values())
                 // args.steps,
@@ -253,9 +249,8 @@ def main(argv=None) -> None:
     for name, ms, count in report["profile"]["top_device_ms"]:
         print(f"  {ms:9.3f} ms  x{count:<6d} {name}")
     for layout, r in report["unet_eval_forward"].items():
-        print(f"UNet eval forward, {layout}: {r['event_ms']} ms between "
-              f"events; {r['device_ms']:.3f} ms of device time in "
-              f"{r['device_events']} launches")
+        print(f"UNet eval forward, {layout}: {r['device_ms']:.3f} ms of "
+              f"device time in {r['device_events']} launches")
         for name, ms, count in r["top_device_ms"]:
             print(f"  {ms:9.3f} ms  x{count:<6d} {name}")
     print(json.dumps(report))

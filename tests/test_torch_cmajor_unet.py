@@ -164,10 +164,14 @@ def test_resolve_conv_impl(monkeypatch):
     monkeypatch.setenv("QEA_CONV_IMPL", "cmajor")
     assert resolve_conv_impl("auto", 16, 256, F_) == "cmajor"
     assert resolve_conv_impl("xla", 16, 256, F_) == "xla"
-    with pytest.warns(UserWarning, match="ignored"):
-        assert resolve_conv_impl("auto", 18, 256, F_) == "xla"
+    # the environment's choice raises outside the coverage as the
+    # argument's does: no retreat to the library route
+    with pytest.raises(ValueError, match="does not cover"):
+        resolve_conv_impl("auto", 18, 256, F_)
     # read when the model is built, not later
     model = UNet(init_features=F_)
+    with pytest.raises(ValueError, match="does not cover"):
+        model(torch.zeros(1, 1, 18, 256))
     monkeypatch.delenv("QEA_CONV_IMPL")
     assert model.conv_impl == "cmajor"
     assert UNet(init_features=F_).conv_impl == "xla"

@@ -130,14 +130,12 @@ def test_training_path_on_a_cuda_tensor_reaches_the_build(monkeypatch,
     with pytest.raises(RuntimeError, match="nvcc not found"):
         gather_cuda.text_stack_bwd_cuda(
             _CudaTyped((2, 3, 32, 128), torch.float32), boxes, (2, 1, 64, 64))
-    # the conv: plain, fused, with a float32 output, and as the dX route
-    # calls it (the cotangent as activations, the rotated weights)
+    # the conv: plain, fused, and as the dX route calls it (the cotangent as activations, the rotated weights)
     conv_before = conv_cmajor_cuda.launches
     xf = _CudaTyped((2, 6, 10 * 16), torch.bfloat16)
     w9 = _CudaTyped((9, 5, 6), torch.bfloat16)
     shift = _CudaTyped((5,), torch.float32)
     for args in ((xf, w9, None, 8, 16), (xf, w9, shift, 8, 16),
-                 (xf, w9, None, 8, 16, True),
                  (_CudaTyped((2, 5, 10 * 16), torch.bfloat16),
                   _CudaTyped((9, 6, 5), torch.bfloat16), None, 8, 16)):
         with pytest.raises(RuntimeError, match="nvcc not found"):
@@ -156,7 +154,7 @@ def test_conv_dispatch_sends_a_cuda_tensor_to_the_kernel(monkeypatch):
 
     seen = []
 
-    def fake_kernel(xf, w9, shift, height, width, out_f32=False):
+    def fake_kernel(xf, w9, shift, height, width):
         seen.append((tuple(w9.shape), shift is not None))
         return torch.zeros((xf.shape[0], w9.shape[1], xf.shape[2]),
                            dtype=torch.bfloat16)
