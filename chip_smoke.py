@@ -10,7 +10,10 @@ Phases; any failure raises, so the exit code is non-zero:
   1. device    - the card's name and power limit (nvidia-smi), torch and CUDA
                  versions. No CUDA device is an error.
   2. build     - nvcc builds `qea_ocr_tpu_torch/csrc/*.cu` into
-                 `qea_ocr_tpu_torch/_build/`, one process per source.
+                 `qea_ocr_tpu_torch/_build/`, one process per source. The
+                 conv library's SASS must hold HGMMA (`wgmma`) and UTMALDG
+                 (TMA loads) and no HMMA (`mma.sync`); ptxas's registers
+                 and spills of each conv instantiation are logged.
   3. kernels   - each of the five kernels against its plain PyTorch version
                  on the card, at the shapes the main paths give it: the
                  strip gather bitwise (also on a document size the TPU
@@ -26,13 +29,18 @@ Phases; any failure raises, so the exit code is non-zero:
                  path), and each kernel's bound from the bytes it must move.
                  The channel-major conv: the eight convs of one full-width
                  UNet eval forward (D=8), with the fused shift + ReLU
-                 epilogue and without, and one odd shape (6 -> 5 channels,
-                 24x100), to a relative L2 of 6e-3 with bitwise-zero output
-                 halo rows and garbage on the input's; its gradient (dX
-                 through the same kernel) against the plain version on the
-                 CPU; beside each fused conv the device time of the cuDNN
-                 conv + batch norm + ReLU it replaces, and its bound (bytes,
-                 or bfloat16 operations at the tensor cores' peak).
+                 epilogue and without, and odd shapes at the edges of the
+                 kernel's tiles (Cin 1, 6, 17, 40; Cout 5, 33, 72, 300;
+                 heights that no tile height divides; widths 104, 136 and
+                 200; D = 1 and 3), to a relative L2 of 6e-3 with
+                 bitwise-zero output halo rows and garbage on the input's;
+                 its gradient (dX through the same kernel) against the plain
+                 version on the CPU; beside each fused conv three cuDNN
+                 yardsticks (the conv + batch norm + ReLU chain it replaces,
+                 a folded conv with bias + ReLU on NCHW tensors, the same on
+                 channels-last tensors), its bound (bytes, or bfloat16
+                 operations at the tensor cores' peak), its rate and its
+                 share of the bound.
   4. slice     - inference at full width: UNet(32) and CRNN(hidden 256, V=95)
                  with seeded random weights in the bfloat16 policy:
                  `make_steps(...).val_forward` on 3 batches of 8 synthetic
@@ -80,6 +88,8 @@ is {"ok": true, "device": {...}}.
 from __future__ import annotations
 
 import json
+import os
+import re
 import subprocess
 import sys
 import time
@@ -449,10 +459,44 @@ def conv_shapes():
             ("dec1.1", 2 * f, f, H, W), ("dec1.2", f, f, H, W)]
 
 
+def check_conv_build() -> dict:
+    """What the conv kernel compiled to: its SASS must hold `wgmma`
+    (HGMMA) and TMA loads (UTMALDG) and no `mma.sync` (HMMA); ptxas's
+    registers and spills for each instantiation (`-Xptxas -v`)."""
+    from qea_ocr_tpu_torch.ops.cuda import build
+
+    nvcc = build.find_nvcc()
+    sass = subprocess.run(
+        [os.path.join(os.path.dirname(nvcc), "cuobjdump"), "-sass",
+         str(build.library_path("conv_cmajor"))],
+        capture_output=True, text=True, check=True, timeout=300).stdout
+    ops = {op: len(re.findall(rf"\b{op}\b", sass))
+           for op in ("HGMMA", "UTMALDG", "HMMA")}
+    if not ops["HGMMA"] or not ops["UTMALDG"] or ops["HMMA"]:
+        raise AssertionError(f"the conv kernel's SASS: {ops}")
+    flags = [f for f in build.NVCC_FLAGS if f not in ("-shared", "-Xcompiler",
+                                                      "-fPIC")]
+    out = subprocess.run(
+        [nvcc, *flags, "-Xptxas", "-v", "-c", "-o",
+         str(build.BUILD_DIR / "conv_cmajor_ptxas.o"),
+         str(build.CSRC_DIR / "conv_cmajor.cu")],
+        capture_output=True, text=True, check=True, timeout=600).stderr
+    # one "Compiling entry function" line, then its spills and registers
+    ptxas = [dict(block_n=int(n), registers=int(r), spill_bytes=int(st))
+             for n, st, r in re.findall(
+                 r"conv_cmajor_kernelILi(\d+)EE.*?(\d+) bytes spill stores"
+                 r".*?Used (\d+) registers", out, re.S)]
+    log(f"[build] conv kernel SASS: {ops['HGMMA']} HGMMA, {ops['UTMALDG']} "
+        f"UTMALDG, {ops['HMMA']} HMMA; ptxas per block width N: "
+        + ", ".join(f"N={p['block_n']} {p['registers']} registers, "
+                    f"{p['spill_bytes']} bytes spilled" for p in ptxas))
+    return dict(sass=ops, ptxas=ptxas)
+
+
 def check_conv(torch, dev, card):
     """The channel-major conv kernel against its plain version: the eight
     shapes of one full-width UNet eval forward, with and without the fused
-    shift + ReLU epilogue, one odd shape, and the dX route. Returns the
+    shift + ReLU epilogue, odd shapes, and the dX route. Returns the
     kernel's result record: times summed over the eight fused convs (what one
     eval forward launches), and each shape's own under `shapes`."""
     import torch.nn.functional as F
@@ -484,7 +528,14 @@ def check_conv(torch, dev, card):
     shapes = []
     cases = [(name, D, cin, cout, h, w, True)
              for name, cin, cout, h, w in conv_shapes()]
-    cases.append(("odd", 2, 6, 5, 24, 100, False))
+    # the edges of the kernel's tiles: input channels that are not a
+    # multiple of the 16-channel chunk, output channels for each block width
+    # (16, 64, 128, 2 x 256), heights that no tile height divides, widths a
+    # multiple of 8 but not of the 64-pixel tile
+    cases += [("odd1", 1, 1, 5, 13, 104, False),
+              ("odd2", 3, 6, 33, 21, 136, False),
+              ("odd3", 2, 17, 72, 9, 200, False),
+              ("odd4", 1, 40, 300, 7, 72, False)]
     for i, (name, d, cin, cout, h, w, timed) in enumerate(cases):
         x, xf, wt, mul, add = operands(30 + i, d, cin, cout, h, w)
         for fused in (True, False):
@@ -540,7 +591,15 @@ def check_conv(torch, dev, card):
 
             def library_folded():
                 return F.conv2d(x16, wf16, add16, padding=1).relu_()
-            for what, fn in (("chain", library), ("folded", library_folded)):
+            # the same on channels-last tensors (converted here, outside the
+            # timed call): no layout transposes inside cuDNN
+            x_cl = x16.contiguous(memory_format=torch.channels_last)
+            wf_cl = wf16.contiguous(memory_format=torch.channels_last)
+
+            def library_cl():
+                return F.conv2d(x_cl, wf_cl, add16, padding=1).relu_()
+            for what, fn in (("chain", library), ("folded", library_folded),
+                             ("channels-last", library_cl)):
                 lib_rel = rel_l2(fn(), cc.unflat(want, h, w))
                 if not lib_rel < 2e-2:
                     raise AssertionError(
@@ -548,6 +607,7 @@ def check_conv(torch, dev, card):
                         f"else at {name}: {lib_rel}")
             lib_ms = device_ms(torch, library, iters=10)
             folded_ms = device_ms(torch, library_folded, iters=10)
+            cl_ms = device_ms(torch, library_cl, iters=10)
             # bytes: the image rows of the input read once, the output with
             # its halo rows written once, weights and shift; operations: one
             # multiply-add per tap, input and output channel, and pixel
@@ -558,23 +618,29 @@ def check_conv(torch, dev, card):
             shapes.append(dict(name=name, cin=cin, cout=cout, h=h, w=w,
                                ms=ms, call_ms=call_ms, plain_ms=plain_ms,
                                library_ms=lib_ms,
-                               library_folded_ms=folded_ms, bound_ms=b_ms,
+                               library_folded_ms=folded_ms,
+                               library_cl_ms=cl_ms, bound_ms=b_ms,
                                bound_by=b_by, gflop=n_flops / 1e9,
-                               mbytes=n_bytes / 1e6))
+                               mbytes=n_bytes / 1e6,
+                               tflops=n_flops / ms / 1e9,
+                               gbytes_s=n_bytes / ms / 1e6,
+                               bound_share=b_ms / ms))
             log(f"[kernels] conv {name} D={d} {cin}->{cout} {h}x{w} fused: "
                 f"rel L2 {rel:.3g}, max abs err {err:.3g}, halo rows bitwise "
                 f"zero; kernel {ms:.4f} ms on the device, {call_ms:.4f} ms a "
                 f"call from Python; plain {plain_ms:.4f} ms; cuDNN conv + "
                 f"batch norm + ReLU {lib_ms:.4f} ms, cuDNN conv on folded "
-                f"weights with bias + ReLU {folded_ms:.4f} ms on the device; "
-                f"bound "
+                f"weights with bias + ReLU {folded_ms:.4f} ms (NCHW), "
+                f"{cl_ms:.4f} ms (channels-last) on the device; bound "
                 f"{b_ms:.4f} ms by {b_by} ({n_bytes / 1e6:.1f} MB, "
-                f"{n_flops / 1e9:.2f} GFLOP) (median, {card})")
+                f"{n_flops / 1e9:.2f} GFLOP); kernel at "
+                f"{n_flops / ms / 1e9:.1f} TFLOP/s, {n_bytes / ms / 1e6:.0f} "
+                f"GB/s, {100 * b_ms / ms:.1f}% of its bound (median, {card})")
         del x, xf, want, got
 
     # the gradient: dX through the same kernel on the rotated weights, dW by
     # a plain weight-gradient convolution; cotangents on the halo rows ignored
-    d, cin, cout, h, w = 2, 6, 5, 24, 100
+    d, cin, cout, h, w = 2, 6, 5, 24, 104
     x, xf, wt, _, _ = operands(50, d, cin, cout, h, w)
     gen = torch.Generator(device=dev).manual_seed(51)
     gf = torch.randn((d, cout, (h + 2) * w), device=dev, generator=gen)
@@ -603,6 +669,7 @@ def check_conv(torch, dev, card):
     return dict(ms=total("ms"), call_ms=total("call_ms"),
                 plain_ms=total("plain_ms"), library_ms=total("library_ms"),
                 library_folded_ms=total("library_folded_ms"),
+                library_cl_ms=total("library_cl_ms"),
                 bound_ms=total("bound_ms"),
                 bound_by=bound(1e6 * total("mbytes"), 1e9 * total("gflop"),
                                BF16_FLOPS)[1],
@@ -965,7 +1032,6 @@ def run_trainer(torch, dev, card):
     no-grad twin on the channel-major conv kernel. Returns the kernel launch
     counts of this phase and the twin-vs-vanilla reading."""
     import glob
-    import os
     import tempfile
 
     from qea_ocr_tpu_torch.cli import patch_cli
@@ -1115,10 +1181,11 @@ def main() -> None:
     libs = build.build_all()
     log(f"[build] {', '.join(p.name for p in libs)} in "
         f"{time.perf_counter() - t0:.1f} s")
+    conv_build = check_conv_build()
 
     gather_fwd, gather_bwd = check_gather(torch, dev, card)
     ctc_fwd, ctc_bwd = check_ctc(torch, dev, card)
-    conv = check_conv(torch, dev, card)
+    conv = {**check_conv(torch, dev, card), **conv_build}
 
     infer_counts, unet, crnn, cm, samples = run_slice(torch, dev, card)
     check_reference(torch, dev, unet, crnn, cm, samples)

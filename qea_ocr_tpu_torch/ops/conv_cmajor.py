@@ -12,8 +12,9 @@ and one below the image. The halo contract is part of the function:
 * the output's halo rows are written as zeros, so a reduction over a conv
   output may sum all of it and divide by the real element count.
 
-Weights are HWIO `(3, 3, Cin, Cout)`, as in the JAX package. Any Cin, Cout, H
-and W are taken.
+Weights are HWIO `(3, 3, Cin, Cout)`, as in the JAX package. Any Cin, Cout
+and H are taken; on the card W must be a multiple of 8 (the kernel's TMA
+copies want 16-byte row strides), where the JAX kernel wants 128.
 
 On a CUDA tensor every entry point launches the hand-written kernel of
 `csrc/conv_cmajor.cu` (through `ops/cuda/conv_cmajor_cuda.py`) or raises; on a
@@ -48,13 +49,16 @@ def unflat(xf: torch.Tensor, height: int, width: int) -> torch.Tensor:
 
 
 def supports(x_shape, w_shape) -> bool:
-    """True when the conv is one this module computes: a 4-d input, a 3x3
-    HWIO kernel with matching input channels, and a launch grid the kernel
-    can cover. No width, height or channel multiple is asked for."""
+    """True when the kernel computes this conv: a 4-d input of at least one
+    channel and a width that is a multiple of 8, a 3x3 HWIO kernel with
+    matching input channels, and a launch grid the kernel can cover. No
+    height or channel multiple is asked for."""
     if len(x_shape) != 4 or len(w_shape) != 4:
         return False
-    d, cin, h, _ = x_shape
-    if tuple(w_shape[:2]) != (3, 3) or w_shape[2] != cin:
+    d, cin, h, w = x_shape
+    if tuple(w_shape[:2]) != (3, 3) or w_shape[2] != cin or cin < 1:
+        return False
+    if w % conv_cmajor_cuda.WIDTH_MULTIPLE:
         return False
     return conv_cmajor_cuda.grid_fits(d, w_shape[3], h)
 
@@ -86,11 +90,8 @@ def _conv_flat(xf: torch.Tensor, w: torch.Tensor, shift: torch.Tensor | None,
     if xf.device.type == "cpu":
         return conv_flat_plain(xf, w, shift, height, width)
     if xf.device.type == "cuda":
-        cin, cout = w.shape[2:]
-        w9 = w.to(torch.bfloat16).permute(0, 1, 3, 2).reshape(
-            9, cout, cin).contiguous()
         return conv_cmajor_cuda.conv_flat_cuda(
-            xf.to(torch.bfloat16).contiguous(), w9,
+            xf.to(torch.bfloat16).contiguous(), w.to(torch.bfloat16),
             None if shift is None else shift.float().contiguous(),
             height, width)
     raise ValueError(f"no channel-major conv for device {xf.device}")

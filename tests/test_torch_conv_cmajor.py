@@ -171,10 +171,11 @@ def test_cotangent_halo_garbage_is_ignored_and_dx_halos_are_zero(case):
 
 # ---------------------------------------------------------------- port only
 @pytest.mark.parametrize("d,cin,cout,h,w", [
-    (1, 1, 5, 3, 7), (2, 6, 5, 24, 100), (1, 17, 33, 5, 16), (3, 5, 1, 9, 130)])
+    (1, 1, 5, 3, 8), (2, 6, 5, 24, 104), (1, 17, 33, 5, 16), (3, 5, 1, 9, 136)])
 def test_any_shape_against_float32_conv(d, cin, cout, h, w):
-    """No lane, tile or channel multiple is asked for (the TPU kernel needs
-    W % 128 == 0 and a tile height that divides H)."""
+    """No tile or channel multiple is asked for, and of the width only a
+    multiple of 8 (the TPU kernel needs W % 128 == 0 and a tile height that
+    divides H)."""
     rng = np.random.default_rng(cin * 100 + w)
     x = _t(_bf16(rng.standard_normal((d, cin, h, w)).astype(np.float32)))
     wt = _t(_bf16((rng.standard_normal((3, 3, cin, cout)) / (3 * cin ** 0.5))
@@ -185,9 +186,53 @@ def test_any_shape_against_float32_conv(d, cin, cout, h, w):
     assert _rel(_np(got), _np(ref)) < REL_L2
 
 
+@pytest.mark.parametrize("width", [7, 100, 130])
+def test_widths_off_the_8_grid_are_refused(width):
+    """The kernel's TMA copies want 16-byte row strides: `supports` says no,
+    and the wrapper raises before it looks at the device."""
+    assert not tcc.supports((D, CIN, 24, width), (3, 3, CIN, COUT))
+    xf = torch.zeros((D, CIN, 26 * width), dtype=torch.bfloat16)
+    w = torch.zeros((3, 3, CIN, COUT), dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="multiple of 8"):
+        conv_cmajor_cuda.conv_flat_cuda(xf, w, None, 24, width)
+
+
+@pytest.mark.parametrize("cin,cout", [(1, 5), (17, 33), (32, 72), (16, 8)])
+def test_pack_weights_matches_a_numpy_arrangement(cin, cout):
+    """(3, 3, Cin, Cout) HWIO -> (9, ceil(Cin/16), Cout rounded up to 8, 16):
+    [tap][chunk][co][ci], zeros where ci >= Cin or co >= Cout."""
+    rng = np.random.default_rng(cin * 1000 + cout)
+    w = _bf16(rng.standard_normal((3, 3, cin, cout)).astype(np.float32))
+    nch, cout8 = -(-cin // 16), -(-cout // 8) * 8
+    want = np.zeros((9, nch, cout8, 16), np.float32)
+    for dy in range(3):
+        for dx in range(3):
+            for ci in range(cin):
+                for co in range(cout):
+                    want[3 * dy + dx, ci // 16, co, ci % 16] = \
+                        w[dy, dx, ci, co]
+    got = conv_cmajor_cuda.pack_weights(_t(w, torch.bfloat16))
+    assert got.dtype == torch.bfloat16 and got.is_contiguous()
+    np.testing.assert_array_equal(_np(got), want)
+
+
+def test_tiles_cover_any_cout():
+    """A block takes up to 256 output channels; more go to further blocks,
+    which the grid check counts."""
+    assert [conv_cmajor_cuda.tile(c) for c in (1, 16, 17, 32, 64, 65, 128,
+                                                129, 256, 300)] == [
+        (16, 8), (16, 8), (32, 8), (32, 8), (64, 8), (128, 4), (128, 4),
+        (256, 2), (256, 2), (256, 2)]
+    assert conv_cmajor_cuda.grid_fits(65535, 256, 2 * 65535)
+    assert not conv_cmajor_cuda.grid_fits(1, 256, 2 * 65535 + 1)
+    assert not conv_cmajor_cuda.grid_fits(65535, 257, 8)
+    assert not conv_cmajor_cuda.grid_fits(1, 32, 8 * 65535 + 1)
+
+
 def test_supports():
     assert tcc.supports((D, CIN, 24, 128), (3, 3, CIN, COUT))
-    assert tcc.supports((D, CIN, 24, 100), (3, 3, CIN, COUT))   # any width
+    assert tcc.supports((D, CIN, 24, 104), (3, 3, CIN, COUT))   # W % 8 == 0
+    assert not tcc.supports((D, CIN, 24, 100), (3, 3, CIN, COUT))
     assert not tcc.supports((D, CIN, 24, 128), (5, 5, CIN, COUT))  # 3x3 only
     assert not tcc.supports((D, CIN, 24, 128), (3, 3, CIN + 1, COUT))
     assert not tcc.supports((CIN, 24, 128), (3, 3, CIN, COUT))
@@ -211,5 +256,5 @@ def test_cpu_tensors_never_count_as_kernel_launches():
     assert conv_cmajor_cuda.launches == before
     with pytest.raises(ValueError, match="CUDA"):
         conv_cmajor_cuda.conv_flat_cuda(
-            torch.zeros((1, 2, 24), dtype=torch.bfloat16),
-            torch.zeros((9, 2, 2), dtype=torch.bfloat16), None, 4, 4)
+            torch.zeros((1, 2, 48), dtype=torch.bfloat16),
+            torch.zeros((3, 3, 2, 2), dtype=torch.bfloat16), None, 4, 8)

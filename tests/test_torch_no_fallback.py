@@ -133,11 +133,11 @@ def test_training_path_on_a_cuda_tensor_reaches_the_build(monkeypatch,
     # the conv: plain, fused, and as the dX route calls it (the cotangent as activations, the rotated weights)
     conv_before = conv_cmajor_cuda.launches
     xf = _CudaTyped((2, 6, 10 * 16), torch.bfloat16)
-    w9 = _CudaTyped((9, 5, 6), torch.bfloat16)
+    w = _CudaTyped((3, 3, 6, 5), torch.bfloat16)
     shift = _CudaTyped((5,), torch.float32)
-    for args in ((xf, w9, None, 8, 16), (xf, w9, shift, 8, 16),
+    for args in ((xf, w, None, 8, 16), (xf, w, shift, 8, 16),
                  (_CudaTyped((2, 5, 10 * 16), torch.bfloat16),
-                  _CudaTyped((9, 6, 5), torch.bfloat16), None, 8, 16)):
+                  _CudaTyped((3, 3, 5, 6), torch.bfloat16), None, 8, 16)):
         with pytest.raises(RuntimeError, match="nvcc not found"):
             conv_cmajor_cuda.conv_flat_cuda(*args)
     assert ctc_cuda.launches == ctc_cuda.bwd_launches == 0
@@ -154,9 +154,9 @@ def test_conv_dispatch_sends_a_cuda_tensor_to_the_kernel(monkeypatch):
 
     seen = []
 
-    def fake_kernel(xf, w9, shift, height, width):
-        seen.append((tuple(w9.shape), shift is not None))
-        return torch.zeros((xf.shape[0], w9.shape[1], xf.shape[2]),
+    def fake_kernel(xf, w, shift, height, width):
+        seen.append((tuple(w.shape), shift is not None))
+        return torch.zeros((xf.shape[0], w.shape[3], xf.shape[2]),
                            dtype=torch.bfloat16)
 
     class OnCuda(torch.Tensor):
@@ -171,7 +171,8 @@ def test_conv_dispatch_sends_a_cuda_tensor_to_the_kernel(monkeypatch):
     cc._conv_flat(xf, w, torch.zeros(5), 3, 4)
     cc._conv_flat(torch.zeros((1, 5, 20), dtype=torch.bfloat16
                               ).as_subclass(OnCuda), cc._rot_w(w), None, 3, 4)
-    assert seen == [((9, 5, 6), False), ((9, 5, 6), True), ((9, 6, 5), False)]
+    assert seen == [((3, 3, 6, 5), False), ((3, 3, 6, 5), True),
+                    ((3, 3, 5, 6), False)]
     with pytest.raises(ValueError, match="no channel-major conv"):
         class OnMeta(torch.Tensor):
             device = torch.device("meta")
