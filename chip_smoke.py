@@ -12,16 +12,27 @@ Phases; any failure raises, so the exit code is non-zero:
   2. build     - nvcc builds `qea_ocr_tpu_torch/csrc/*.cu` into
                  `qea_ocr_tpu_torch/_build/`, one process per source. The
                  conv library's SASS must hold HGMMA (`wgmma`) and UTMALDG
-                 (TMA loads) and no HMMA (`mma.sync`); ptxas's registers
-                 and spills of each conv instantiation are logged.
-  3. kernels   - each of the five kernels against its plain PyTorch version
+                 (TMA loads) and no HMMA (`mma.sync`); ptxas's registers,
+                 static shared memory and spills of every kernel (each conv
+                 instantiation, the CTC and gather kernels) are logged.
+  3. kernels   - first the launch floor: the device time of an empty
+                 launch (`torch.cuda._sleep(0)`), back to back. Then each
+                 of the five kernels against its plain PyTorch version
                  on the card, at the shapes the main paths give it: the
                  strip gather bitwise (also on a document size the TPU
                  kernel could not take) and its backward to 1e-6 absolute,
-                 with boxes that overlap and one that pokes out of the
-                 document; the CTC alpha recursion and its beta/gradient
-                 recursion to a relative 1e-5 (floor 1), with infeasible
-                 rows at exactly 1e5 and gradient exactly 0. Median
+                 bitwise repeatable, with boxes that overlap and one that
+                 pokes out of the document; both again on documents of
+                 37x70, 400x510 and 33x129 (not multiples of the backward's
+                 32x128 tile, nor of 4 in W) with boxes out of every edge
+                 and corner, wholly beyond an edge, larger than a tile,
+                 overlapping and empty. The CTC alpha recursion and its
+                 beta/gradient recursion to a relative 1e-5 (floor 1) at
+                 B = 1, 128 and 1536 (T=31) and 64 (T=38), L = 100 with a
+                 full-length row, infeasible rows at exactly 1e5 and
+                 gradient exactly 0, the gradient bitwise repeatable; a T
+                 (120) whose row does not fit the backward's shared memory
+                 must raise before any launch. Median
                  times: each kernel's device time (launches queued behind
                  a spin, so Python's launch cost is hidden), its time as one
                  call from Python, the plain version's time a call, the
@@ -296,12 +307,75 @@ def check_gather(torch, dev, card):
                        bound_by=fby, library_ms=None)
             bwd = dict(ms=bms, call_ms=bcall_ms, plain_ms=bplain_ms,
                        bound_ms=bb_, bound_by=bby, library_ms=None)
+        else:
+            fwd[f"ms_{H}x{W}"], bwd[f"ms_{H}x{W}"] = ms, bms
+    worst_bwd = max(worst_bwd, check_gather_edges(torch, dev))
     fwd["max_abs_err"], bwd["max_abs_err"] = worst_fwd, worst_bwd
     return fwd, bwd
 
 
-def _ctc_inputs(torch, dev, B, seed):
-    T, V, L = 31, 95, 100
+def gather_edge_boxes(H: int, W: int) -> np.ndarray:
+    """16 boxes for a document of H x W that reach every edge case of the
+    gather backward's tiles: each corner and each edge poked out of, two
+    boxes wholly beyond an edge (all their cells clamp onto it), a box
+    larger than the 32 x 128 tile, two that overlap, an empty box, the data
+    layer's dummy and one in the middle."""
+    return np.array([
+        (-6, -4, 10, 8), (W - 10, -5, W + 20, 6),          # top corners
+        (-8, H - 6, 12, H + 9), (W - 8, H - 6, W + 12, H + 9),
+        (20, -9, 60, 4), (W - 10, 5, W + 20, 15),          # top, right
+        (30, H - 3, 90, H + 20), (-15, 12, 6, 20),         # bottom, left
+        (W + 3, 10, W + 30, 20), (5, -40, 50, -25),        # wholly beyond
+        (5, 5, 305, 65),                                   # larger than a tile
+        (10, 10, 30, 25), (12, 12, 32, 27),                # overlapping
+        (0, 0, 0, 0), (0, 0, 1, 1),                        # empty, dummy
+        (W // 2 - 20, H // 2 - 8, W // 2 + 20, H // 2 + 8)], np.int32)
+
+
+def check_gather_edges(torch, dev) -> float:
+    """Both gather kernels on documents whose sizes are multiples of neither
+    the backward's 32 x 128 tile nor, in W, of 4 (so the scalar stores),
+    with `gather_edge_boxes` (the second document's in reverse order); the
+    backward against autograd through the plain version on the CPU. Returns
+    the backward's largest error."""
+    from qea_ocr_tpu_torch.ops.cuda import gather_cuda
+
+    worst = 0.0
+    for i, (H, W) in enumerate(((37, 70), (400, 510), (33, 129))):
+        gen = torch.Generator(device=dev).manual_seed(60 + i)
+        docs = torch.rand((2, 1, H, W), device=dev, generator=gen)
+        boxes = gather_edge_boxes(H, W)
+        bb = torch.from_numpy(np.stack([boxes, boxes[::-1]])).to(dev)
+        got = gather_cuda.text_stack_cuda(docs, bb)
+        if not torch.equal(got, gather_cuda.text_stack_plain(docs, bb)):
+            raise AssertionError(f"gather kernel != plain at {H}x{W}")
+        g = torch.randn(got.shape, device=dev, generator=gen)
+        d_docs = gather_cuda.text_stack_bwd_cuda(g, bb, docs.shape)
+        again = gather_cuda.text_stack_bwd_cuda(g, bb, docs.shape)
+        # the plain version on the CPU adds in the kernel's order; on the
+        # card autograd's scatter adds in a varying one, which moves an edge
+        # pixel that collects hundreds of clamped cells by ~1e-6 relative
+        leaf = docs.cpu().requires_grad_()
+        (d_plain,) = torch.autograd.grad(
+            gather_cuda.text_stack_plain(leaf, bb.cpu()), leaf, g.cpu())
+        torch.cuda.synchronize()
+        err = float((d_docs.cpu() - d_plain).abs().max())
+        largest = float(d_plain.abs().max())
+        if not torch.equal(d_docs, again):
+            raise AssertionError(f"gather backward at {H}x{W} is not "
+                                 "repeatable")
+        if not err <= GATHER_BWD_ATOL * max(1.0, largest):
+            raise AssertionError(f"gather backward kernel vs plain at "
+                                 f"{H}x{W}: max abs err {err}")
+        worst = max(worst, err)
+        log(f"[kernels] gather edges D=2 S=16 doc {H}x{W}: forward bitwise "
+            f"equal; backward max abs err {err:.3g} (largest gradient "
+            f"{largest:.3g}), repeatable bitwise")
+    return worst
+
+
+def _ctc_inputs(torch, dev, B, seed, T=31):
+    V, L = 95, 100
     rng = np.random.default_rng(seed)
     logits = torch.from_numpy(rng.normal(size=(T, B, V)).astype(np.float32))
     lp = torch.log_softmax(3 * logits, dim=2)
@@ -309,15 +383,18 @@ def _ctc_inputs(torch, dev, B, seed):
     labels = np.full((B, L), V, np.int32)
     for i, n in enumerate(lengths):
         labels[i, :n] = rng.integers(1, V, n)
-    lengths[0] = 0                        # empty label: the blank path
-    labels[1, :10] = 42                   # 10 repeats: needs 19 frames
-    lengths[1] = 10
-    labels[2, :20] = 7                    # 20 repeats need 39 > 31 frames
-    lengths[2] = 20
-    labels[3, :40] = rng.integers(1, V, 40)   # 40 symbols > 31 frames
-    lengths[3] = 40
-    labels[4, :100] = rng.integers(1, V, 100)  # full L, infeasible
-    lengths[4] = 100
+    special = [(0, []),                         # empty label: the blank path
+               (10, [42] * 10),                 # 10 repeats: needs 19 frames
+               (20, [7] * 20),                  # 20 repeats need 39 > 31
+               (40, rng.integers(1, V, 40)),    # 40 symbols > 31 frames
+               (100, rng.integers(1, V, 100)),  # full L: infeasible, and the
+                                                # last extended position
+               (6, [5, 9, 5, 9, 5, 9]),         # a symbol 3 times
+               (30, 1 + np.arange(30) % 94)]    # 30 symbols in 31 frames:
+                                                # the band's last positions
+    for i, (n, lab) in enumerate(special[:B]):
+        labels[i, :n] = lab
+        lengths[i] = n
     g = rng.uniform(0.1, 2.0, B).astype(np.float32)   # upstream gradient
     return (lp.to(dev), torch.from_numpy(labels).to(dev),
             torch.from_numpy(lengths).to(dev), torch.from_numpy(g).to(dev), V)
@@ -348,30 +425,74 @@ def _ctc_library_ms(torch, lp, labels, lengths, g, V):
 
 
 def check_ctc(torch, dev, card):
-    """Alpha and beta/gradient kernels against their plain versions.
-    Returns their result records (timed at the first size, B = D*S)."""
+    """Alpha and beta/gradient kernels against their plain versions at
+    B = 128 (= D*S, timed; its records are returned), 1536 (timed), 1 and,
+    at T = 38, 64; a T whose row does not fit the backward's shared memory
+    must raise before any launch."""
     from qea_ocr_tpu_torch.ops.cuda import ctc_cuda
 
     fwd = bwd = None
     worst_fwd = worst_bwd = 0.0
-    for B, seed in ((D * S, 20), (1536, 21)):
-        lp, labels, lengths, g, V = _ctc_inputs(torch, dev, B, seed)
-        T, L = lp.shape[0], labels.shape[1]
+    for B, seed, T, timed in ((D * S, 20, 31, True), (1536, 21, 31, True),
+                              (1, 22, 31, False), (64, 23, 38, False)):
+        lp, labels, lengths, g, V = _ctc_inputs(torch, dev, B, seed, T)
+        L = labels.shape[1]
+        infeasible = slice(2, 5) if B >= 5 else slice(0, 0)
         got = ctc_cuda.ctc_nll_cuda(lp, labels, lengths, V)
         want = ctc_cuda.ctc_nll_plain(lp, labels, lengths, V)
         torch.cuda.synchronize()
-        if not (got[2:5] == 1e5).all() or not (want[2:5] == 1e5).all():
+        if not (got[infeasible] == 1e5).all() \
+                or not (want[infeasible] == 1e5).all():
             raise AssertionError(f"infeasible rows not 1e5: kernel "
-                                 f"{got[2:5].tolist()}, plain "
-                                 f"{want[2:5].tolist()}")
+                                 f"{got[infeasible].tolist()}, plain "
+                                 f"{want[infeasible].tolist()}")
         if not torch.isfinite(got).all():
             raise AssertionError("CTC kernel returned non-finite values")
         err = float((got - want).abs().max())
         rel = float(((got - want).abs() / want.abs().clamp(min=1)).max())
         if rel > KERNEL_REL_TOL:
-            raise AssertionError(f"CTC kernel vs plain at B={B}: relative "
-                                 f"err {rel} > {KERNEL_REL_TOL}")
+            raise AssertionError(f"CTC kernel vs plain at B={B} T={T}: "
+                                 f"relative err {rel} > {KERNEL_REL_TOL}")
         worst_fwd = max(worst_fwd, err)
+
+        # backward: the kernel's own alpha in, d log_probs out
+        nll, alpha = ctc_cuda.ctc_nll_cuda(lp, labels, lengths, V,
+                                           want_alpha=True)
+        if not torch.equal(nll, got):
+            raise AssertionError("the alpha output changed the kernel's nll")
+        d_lp = ctc_cuda.ctc_grad_cuda(lp, labels, lengths, alpha, nll, g, V)
+        again = ctc_cuda.ctc_grad_cuda(lp, labels, lengths, alpha, nll, g, V)
+        p_nll, p_alpha = ctc_cuda._alpha_plain(lp, labels, lengths, V, 0)
+        d_plain = ctc_cuda.ctc_grad_plain(lp, labels, lengths, p_alpha, p_nll,
+                                          g, V)
+        torch.cuda.synchronize()
+        if not torch.isfinite(d_lp).all():
+            raise AssertionError("CTC backward kernel returned non-finite "
+                                 "values")
+        if float(d_lp[:, infeasible].abs().sum()) != 0.0 \
+                or float(d_plain[:, infeasible].abs().sum()) != 0.0:
+            raise AssertionError("gradient of an infeasible row is not 0")
+        a_rel = float(((alpha.permute(1, 0, 2) - p_alpha).abs()
+                       / p_alpha.abs().clamp(min=1)).max())
+        berr = float((d_lp - d_plain).abs().max())
+        brel = float(((d_lp - d_plain).abs()
+                      / d_plain.abs().clamp(min=1)).max())
+        if not torch.equal(d_lp, again):
+            raise AssertionError(f"CTC backward kernel at B={B} T={T} is not "
+                                 "repeatable")
+        if brel > KERNEL_REL_TOL or a_rel > KERNEL_REL_TOL:
+            raise AssertionError(f"CTC backward kernel vs plain at B={B} "
+                                 f"T={T}: relative err {brel} (alpha "
+                                 f"{a_rel}) > {KERNEL_REL_TOL}")
+        worst_bwd = max(worst_bwd, berr)
+        what = (f"ctc T={T} V={V} L={L} B={B}: max abs err {err:.3g}, max "
+                f"rel err {rel:.3g}; backward max abs err {berr:.3g}, max rel "
+                f"err {brel:.3g} (largest gradient "
+                f"{float(d_plain.abs().max()):.3g}), infeasible rows exactly "
+                "0, repeatable bitwise")
+        if not timed:
+            log(f"[kernels] {what}")
+            continue
         ms = device_ms(torch, lambda: ctc_cuda.ctc_nll_cuda(
             lp, labels, lengths, V))
         call_ms = median_ms(torch, lambda: ctc_cuda.ctc_nll_cuda(
@@ -380,38 +501,6 @@ def check_ctc(torch, dev, card):
             lp, labels, lengths, V))
         lib_fwd_ms, lib_bwd_ms = _ctc_library_ms(torch, lp, labels, lengths,
                                                  g, V)
-        log(f"[kernels] ctc T=31 V=95 L=100 B={B}: max abs err {err:.3g}, "
-            f"max rel err {rel:.3g}; kernel {ms:.4f} ms on the device, "
-            f"{call_ms:.4f} ms a call from Python; plain {plain_ms:.4f} ms a "
-            f"call; F.ctc_loss forward {lib_fwd_ms:.4f} ms on the device "
-            f"(median, {card})")
-
-        # backward: the kernel's own alpha in, d log_probs out
-        nll, alpha = ctc_cuda.ctc_nll_cuda(lp, labels, lengths, V,
-                                           want_alpha=True)
-        if not torch.equal(nll, got):
-            raise AssertionError("the alpha output changed the kernel's nll")
-        d_lp = ctc_cuda.ctc_grad_cuda(lp, labels, lengths, alpha, nll, g, V)
-        p_nll, p_alpha = ctc_cuda._alpha_plain(lp, labels, lengths, V, 0)
-        d_plain = ctc_cuda.ctc_grad_plain(lp, labels, lengths, p_alpha, p_nll,
-                                          g, V)
-        torch.cuda.synchronize()
-        if not torch.isfinite(d_lp).all():
-            raise AssertionError("CTC backward kernel returned non-finite "
-                                 "values")
-        if float(d_lp[:, 2:5].abs().max()) != 0.0 \
-                or float(d_plain[:, 2:5].abs().max()) != 0.0:
-            raise AssertionError("gradient of an infeasible row is not 0")
-        a_rel = float(((alpha.permute(1, 0, 2) - p_alpha).abs()
-                       / p_alpha.abs().clamp(min=1)).max())
-        berr = float((d_lp - d_plain).abs().max())
-        brel = float(((d_lp - d_plain).abs()
-                      / d_plain.abs().clamp(min=1)).max())
-        if brel > KERNEL_REL_TOL or a_rel > KERNEL_REL_TOL:
-            raise AssertionError(f"CTC backward kernel vs plain at B={B}: "
-                                 f"relative err {brel} (alpha {a_rel}) > "
-                                 f"{KERNEL_REL_TOL}")
-        worst_bwd = max(worst_bwd, berr)
         bms = device_ms(torch, lambda: ctc_cuda.ctc_grad_cuda(
             lp, labels, lengths, alpha, nll, g, V))
         bcall_ms = median_ms(torch, lambda: ctc_cuda.ctc_grad_cuda(
@@ -420,29 +509,59 @@ def check_ctc(torch, dev, card):
             lp, labels, lengths, p_alpha, p_nll, g, V))
         alpha_ms = device_ms(torch, lambda: ctc_cuda.ctc_nll_cuda(
             lp, labels, lengths, V, want_alpha=True))
-        log(f"[kernels] ctc backward B={B}: max abs err {berr:.3g}, max rel "
-            f"err {brel:.3g} (largest gradient "
-            f"{float(d_plain.abs().max()):.3g}), infeasible rows exactly 0; "
-            f"kernel {bms:.4f} ms on the device, {bcall_ms:.4f} ms a call; "
-            f"plain {bplain_ms:.4f} ms a call; F.ctc_loss backward "
-            f"{lib_bwd_ms:.4f} ms on the device; forward writing alpha "
-            f"{alpha_ms:.4f} ms on the device (median, {card})")
+        log(f"[kernels] {what}; forward: kernel {ms:.4f} ms on the device, "
+            f"{call_ms:.4f} ms a call from Python; plain {plain_ms:.4f} ms a "
+            f"call; F.ctc_loss forward {lib_fwd_ms:.4f} ms on the device; "
+            f"writing alpha {alpha_ms:.4f} ms on the device; backward: kernel "
+            f"{bms:.4f} ms on the device, {bcall_ms:.4f} ms a call; plain "
+            f"{bplain_ms:.4f} ms a call; F.ctc_loss backward {lib_bwd_ms:.4f} "
+            f"ms on the device (median, {card})")
         if fwd is None:
-            # bytes: log-probs, labels, lengths in, nll out (backward: also
-            # alpha, nll and the upstream gradient in, d log_probs out);
-            # operations: one 3-way log-sum-exp (3 exp, 1 log, about 8 adds,
-            # maxes and compares) per step and position below each row's
-            # extended length, plus an exp and 3 adds per such cell backward
-            cells = T * int((2 * lengths.clamp(0, L) + 1).sum())
+            # bytes: log-probs, labels, lengths in, nll out; operations: one
+            # 3-way log-sum-exp (3 exp, 1 log, about 8 adds, maxes and
+            # compares) per step and position below each row's extended
+            # length. The backward needs alpha and the emissions only below
+            # the extended length of a row that is not clamped (its other
+            # rows' gradient is 0): those, labels, lengths, nll and the
+            # upstream gradient in, d log_probs out; per such cell the
+            # log-sum-exp, an exp and 3 adds
+            elen = 2 * lengths.clamp(0, L) + 1
+            cells = T * int(elen.sum())
+            live_cells = T * int(elen[nll < ctc_cuda.INFEASIBLE_NLL].sum())
             io = lp.nbytes + labels.nbytes + lengths.nbytes + nll.nbytes
             fb, fby = bound(io, 12 * cells)
-            bb_, bby = bound(io + alpha.nbytes + g.nbytes + d_lp.nbytes,
-                             16 * cells)
+            bb_, bby = bound(labels.nbytes + lengths.nbytes + nll.nbytes
+                             + g.nbytes + d_lp.nbytes + 8 * live_cells,
+                             16 * live_cells)
             fwd = dict(ms=ms, call_ms=call_ms, plain_ms=plain_ms, bound_ms=fb,
                        bound_by=fby, library_ms=lib_fwd_ms,
                        with_alpha_ms=alpha_ms)
             bwd = dict(ms=bms, call_ms=bcall_ms, plain_ms=bplain_ms,
                        bound_ms=bb_, bound_by=bby, library_ms=lib_bwd_ms)
+        else:
+            fwd[f"ms_b{B}"], bwd[f"ms_b{B}"] = ms, bms
+
+    # a T beyond the backward's shared memory: refused before any launch,
+    # forward included
+    lp, labels, lengths, g, V = _ctc_inputs(torch, dev, 4, 24, 120)
+    counts = (ctc_cuda.launches, ctc_cuda.bwd_launches)
+    for call in (lambda: ctc_cuda.ctc_nll_cuda(lp, labels, lengths, V,
+                                               want_alpha=True),
+                 lambda: ctc_cuda.ctc_grad_cuda(
+                     lp, labels, lengths, torch.zeros(
+                         (4, lp.shape[0], 2 * labels.shape[1] + 1),
+                         device=dev), torch.zeros(4, device=dev), g, V)):
+        try:
+            call()
+        except ValueError:
+            continue
+        raise AssertionError(f"T={lp.shape[0]} did not raise")
+    if (ctc_cuda.launches, ctc_cuda.bwd_launches) != counts:
+        raise AssertionError("a refused CTC call launched a kernel")
+    log(f"[kernels] ctc T={lp.shape[0]} (backward's shared memory "
+        f"{ctc_cuda.grad_smem_bytes(lp.shape[0], V, labels.shape[1])} > "
+        f"{ctc_cuda.GRAD_MAX_SMEM} bytes): the alpha output and the backward "
+        "raise ValueError before any launch")
     fwd["max_abs_err"], bwd["max_abs_err"] = worst_fwd, worst_bwd
     return fwd, bwd
 
@@ -459,13 +578,43 @@ def conv_shapes():
             ("dec1.1", 2 * f, f, H, W), ("dec1.2", f, f, H, W)]
 
 
-def check_conv_build() -> dict:
-    """What the conv kernel compiled to: its SASS must hold `wgmma`
-    (HGMMA) and TMA loads (UTMALDG) and no `mma.sync` (HMMA); ptxas's
-    registers and spills for each instantiation (`-Xptxas -v`)."""
+def ptxas_info(source: str) -> list[dict]:
+    """ptxas's report (`-Xptxas -v`) on `csrc/<source>.cu`: for each kernel
+    its mangled name, registers, static shared memory and spill stores."""
+    from qea_ocr_tpu_torch.ops.cuda import build
+
+    flags = [f for f in build.NVCC_FLAGS if f not in ("-shared", "-Xcompiler",
+                                                      "-fPIC")]
+    out = subprocess.run(
+        [build.find_nvcc(), *flags, "-Xptxas", "-v", "-c", "-o",
+         str(build.BUILD_DIR / f"{source}_ptxas.o"),
+         str(build.CSRC_DIR / f"{source}.cu")],
+        capture_output=True, text=True, check=True, timeout=600).stderr
+    info = []
+    for chunk in out.split("Compiling entry function '")[1:]:
+        num = lambda pat: int((re.search(pat, chunk) or [0, 0])[1])
+        info.append(dict(name=chunk.split("'", 1)[0],
+                         registers=num(r"Used (\d+) registers"),
+                         smem_bytes=num(r"(\d+) bytes smem"),
+                         spill_bytes=num(r"(\d+) bytes spill stores")))
+    return info
+
+
+def check_build() -> dict:
+    """What the kernels compiled to. The conv kernel's SASS must hold
+    `wgmma` (HGMMA) and TMA loads (UTMALDG) and no `mma.sync` (HMMA).
+    ptxas's registers, static shared memory and spills (`-Xptxas -v`) of
+    each conv instantiation and of the CTC and gather kernels, the three
+    sources compiled in parallel. Returns {kernel name: ptxas record} for
+    the CTC and gather kernels and the conv's SASS and ptxas records."""
+    from concurrent.futures import ThreadPoolExecutor
+
     from qea_ocr_tpu_torch.ops.cuda import build
 
     nvcc = build.find_nvcc()
+    with ThreadPoolExecutor(max_workers=3) as pool:
+        reports = dict(zip(("conv_cmajor", "ctc", "gather"), pool.map(
+            ptxas_info, ("conv_cmajor", "ctc", "gather"))))
     sass = subprocess.run(
         [os.path.join(os.path.dirname(nvcc), "cuobjdump"), "-sass",
          str(build.library_path("conv_cmajor"))],
@@ -474,23 +623,30 @@ def check_conv_build() -> dict:
            for op in ("HGMMA", "UTMALDG", "HMMA")}
     if not ops["HGMMA"] or not ops["UTMALDG"] or ops["HMMA"]:
         raise AssertionError(f"the conv kernel's SASS: {ops}")
-    flags = [f for f in build.NVCC_FLAGS if f not in ("-shared", "-Xcompiler",
-                                                      "-fPIC")]
-    out = subprocess.run(
-        [nvcc, *flags, "-Xptxas", "-v", "-c", "-o",
-         str(build.BUILD_DIR / "conv_cmajor_ptxas.o"),
-         str(build.CSRC_DIR / "conv_cmajor.cu")],
-        capture_output=True, text=True, check=True, timeout=600).stderr
-    # one "Compiling entry function" line, then its spills and registers
-    ptxas = [dict(block_n=int(n), registers=int(r), spill_bytes=int(st))
-             for n, st, r in re.findall(
-                 r"conv_cmajor_kernelILi(\d+)EE.*?(\d+) bytes spill stores"
-                 r".*?Used (\d+) registers", out, re.S)]
+    ptxas = [dict(block_n=int(m[1]), registers=k["registers"],
+                  spill_bytes=k["spill_bytes"])
+             for k in reports["conv_cmajor"]
+             if (m := re.search(r"conv_cmajor_kernelILi(\d+)EE", k["name"]))]
     log(f"[build] conv kernel SASS: {ops['HGMMA']} HGMMA, {ops['UTMALDG']} "
         f"UTMALDG, {ops['HMMA']} HMMA; ptxas per block width N: "
         + ", ".join(f"N={p['block_n']} {p['registers']} registers, "
                     f"{p['spill_bytes']} bytes spilled" for p in ptxas))
-    return dict(sass=ops, ptxas=ptxas)
+    small = {}
+    for source, names in (("ctc", ("ctc_alpha_kernel",
+                                   "ctc_beta_grad_kernel")),
+                          ("gather", ("gather_fwd_kernel",
+                                      "gather_bwd_kernel"))):
+        for name in names:
+            k = [k for k in reports[source] if name in k["name"]]
+            if len(k) != 1:
+                raise AssertionError(f"ptxas on {source}.cu reported "
+                                     f"{len(k)} entries for {name}")
+            small[name] = {key: k[0][key] for key in
+                           ("registers", "smem_bytes", "spill_bytes")}
+            log(f"[build] {source}.cu {name}: {k[0]['registers']} "
+                f"registers, {k[0]['smem_bytes']} bytes of static shared "
+                f"memory, {k[0]['spill_bytes']} bytes spilled")
+    return dict(conv=dict(sass=ops, ptxas=ptxas), **small)
 
 
 def check_conv(torch, dev, card):
@@ -1181,11 +1337,20 @@ def main() -> None:
     libs = build.build_all()
     log(f"[build] {', '.join(p.name for p in libs)} in "
         f"{time.perf_counter() - t0:.1f} s")
-    conv_build = check_conv_build()
+    ptxas = check_build()
 
+    # the floor under every small kernel: an empty launch, back to back
+    floor_ms = device_ms(torch, lambda: torch.cuda._sleep(0))
+    log(f"[kernels] launch floor: torch.cuda._sleep(0) {floor_ms:.4f} ms on "
+        f"the device (median, {card})")
     gather_fwd, gather_bwd = check_gather(torch, dev, card)
     ctc_fwd, ctc_bwd = check_ctc(torch, dev, card)
-    conv = {**check_conv(torch, dev, card), **conv_build}
+    for record, kernel in ((gather_fwd, "gather_fwd_kernel"),
+                           (gather_bwd, "gather_bwd_kernel"),
+                           (ctc_fwd, "ctc_alpha_kernel"),
+                           (ctc_bwd, "ctc_beta_grad_kernel")):
+        record.update(ptxas[kernel])
+    conv = {**check_conv(torch, dev, card), **ptxas["conv"]}
 
     infer_counts, unet, crnn, cm, samples = run_slice(torch, dev, card)
     check_reference(torch, dev, unet, crnn, cm, samples)

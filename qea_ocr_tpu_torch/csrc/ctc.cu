@@ -36,14 +36,15 @@
 // 1.5 MB of log-probs and the backward writes as much, so each is a chain of
 // 31 short latency-bound steps.
 //
-// Design: one block per batch row, one thread per extended position (S is
-// rounded up to a whole number of warps; at most 1024, so L <= 511). The
-// recursion's state lives in shared memory, double-buffered, so each step
-// needs exactly one __syncthreads: step t reads buffer t%2 and writes buffer
-// (t+1)%2. Each thread keeps its own z[s] and skip flag in registers and
-// reads its emission log_probs[t, b, z[s]] directly; the TPU kernel's
-// one-hot einsum was a workaround for the TPU's weak gathers. expf/logf are
-// the accurate library functions (no fast-math intrinsics).
+// Forward design: one block per batch row, one thread per extended
+// position (S is rounded up to a whole number of warps; at most 1024, so
+// L <= 511). The recursion's state lives in shared memory, double-buffered,
+// so each step needs exactly one __syncthreads: step t reads buffer t%2 and
+// writes buffer (t+1)%2. Each thread keeps its own z[s] and skip flag in
+// registers and reads its emission log_probs[t, b, z[s]] directly; the TPU
+// kernel's one-hot einsum was a workaround for the TPU's weak gathers.
+// expf/logf are the accurate library functions (no fast-math intrinsics),
+// in both kernels.
 //
 // alpha for the backward: when a gradient is wanted the forward also writes
 // alpha, as (B, T, S) float32, and the backward reads it. Recomputing it in
@@ -52,22 +53,53 @@
 // that nothing waits for (38 MB at B=1536). Without a gradient the pointer
 // is null and nothing is written.
 //
-// The backward's scatter to the vocabulary: several s share one z (every
-// even s is the blank; repeated characters), so each step's V gradients are
-// summed in a V-wide shared buffer with shared-memory atomicAdd, then written
-// once; the buffer is double-buffered like the recursion, so the step still
-// has one barrier. Only non-zero terms are added (positions at or past elen
-// contribute exactly 0), so the blank's slot sees len+1 adds, not L+1.
-// The atomics' order varies from run to run: each output is a sum of at most
-// len+1 same-signed float32 terms, so two runs (or the kernel and its plain
-// version) differ by at most about (len+1) * 2^-24 relative, 6e-6 at the
-// worst (len = 100) and 5e-7 at the usual 8 symbols.
+// Backward design. Only a band of positions can matter: a row the forward
+// did not clamp has an alignment in T steps, so len <= T and every s that
+// beta can reach lies below elen <= min(S, 2T+1) (63 at T=31, against
+// S=201); a clamped row's gradient is 0 and its block stores zeros and
+// stops. So a block takes one row with one thread per position of that
+// band (64 threads at T=31, two warps), and the chain of T steps has one
+// __syncthreads each on the double-buffered c = beta + E. What it keeps off
+// the chain:
+//   * global memory. Before the chain each thread issues all T of its alpha
+//     reads (coalesced across threads) and all T of its emission reads (a
+//     gather inside one 380-byte row of log-probs) as cp.async copies into
+//     shared memory, in flight together and holding no registers; a thread
+//     reads back only its own column. No step waits on device memory, and
+//     only the band's alpha is read.
+//   * the gradient. A step adds its beta into its alpha in shared memory;
+//     the T terms exp(alpha + beta - logZ) are taken after the chain.
+//   * the scatter to the vocabulary. The row's whole (T, V) gradient sits in
+//     shared memory (11.8 KB at T=31, V=95) and goes to device memory once,
+//     after the last barrier. The blank's terms (even s) are summed for each
+//     step by one thread, in position order; each symbol's first position
+//     in the label (found while the copies land) sums the terms of all its
+//     positions, in label order, into its slot, so each slot has one writer.
+// No atomics: every sum is taken in a fixed order, and the result is
+// bitwise repeatable; against the plain version (one scatter_add) it
+// differs by float32 rounding of that order.
+//
+// Tried on the way, and slower on the card (PERF.md): all T loads held in
+// registers over the full S with fully unrolled steps (about 100 registers,
+// two blocks an SM: slower than the first port at large B); the same from
+// shared memory with rolled steps; one warp a row over the band with two
+// positions a lane (the two positions of a step run one after the other).
+// What is left is the chain itself: one accurate three-way log-sum-exp, a
+// shared round trip and a barrier a step, as in the forward.
+//
+// Hopper's own units do not apply. There is no matrix product, so wgmma has
+// nothing to do. TMA wants 16-byte-aligned starts and strides: a row of
+// log-probs is 380 bytes at a stride of B*380, and a row's alpha block
+// (T*S floats, 24,924 bytes at T=31, L=100) is not a multiple of 16 either;
+// a TMA copy from a start that is not 16-byte aligned is an illegal
+// instruction on this card. cp.async (4 bytes a copy) takes any alignment.
 #include <cuda_runtime.h>
 
 namespace {
 
 constexpr float kNeg = -1e30f;
 constexpr float kClamp = 1e5f;
+constexpr int kMaxSmem = 232448;  // dynamic shared memory a block may have
 
 __device__ __forceinline__ float lse3(float a, float b, float c) {
   const float m = fmaxf(a, fmaxf(b, c));
@@ -147,81 +179,160 @@ __global__ void ctc_alpha_kernel(const float* __restrict__ log_probs,
   }
 }
 
-// One block per batch row, one thread per extended position; see the header.
-// Shared memory: 2 * blockDim.x floats of c = beta + E, then 2 * V floats of
-// per-step vocabulary sums.
-__global__ void ctc_beta_grad_kernel(const float* __restrict__ log_probs,
-                                     const int* __restrict__ labels,
-                                     const int* __restrict__ lengths,
-                                     const float* __restrict__ alpha,
-                                     const float* __restrict__ nll,
-                                     const float* __restrict__ grad_out,
-                                     float* __restrict__ grad_lp, int T,
-                                     int B, int V, int L, int pad_id,
-                                     int blank) {
+// 4-byte copy from device to shared memory that does not hold the thread
+// (cp.async): a thread can have all of its loads in flight at once.
+__device__ __forceinline__ void copy_async(float* dst, const float* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(
+                   (unsigned)__cvta_generic_to_shared(dst)),
+               "l"(src));
+}
+
+__device__ __forceinline__ void copy_async_wait() {
+  asm volatile("cp.async.wait_all;\n" ::);
+}
+
+// One block per batch row, one thread per extended position of the band
+// s < n = blockDim.x that holds every live position; see the header.
+// Shared memory, in 4-byte words: c = beta + E (2, n), E and the terms
+// (T, n) each, the row's gradient (T, V), the blank's totals (T) and the
+// label's symbols z[2k+1] (n / 2).
+__global__ void __launch_bounds__(1024)
+ctc_beta_grad_kernel(const float* __restrict__ log_probs,
+                     const int* __restrict__ labels,
+                     const int* __restrict__ lengths,
+                     const float* __restrict__ alpha,
+                     const float* __restrict__ nll,
+                     const float* __restrict__ grad_out,
+                     float* __restrict__ grad_lp, int T, int B, int V, int L,
+                     int pad_id, int blank) {
   extern __shared__ float smem[];
   const int b = blockIdx.x;
   const int s = threadIdx.x;
-  const int nth = blockDim.x;
+  const int n = blockDim.x;
   const int S = 2 * L + 1;
-  const bool active = s < S;
   const size_t t_stride = (size_t)B * V;
-  float* out_row = grad_lp + (size_t)b * V;
+  float* out = grad_lp + (size_t)b * V;
 
+  // A row the forward did not clamp has 0 <= len <= L and an alignment in
+  // T steps, so len <= T and elen <= min(S, 2T+1) <= n: beta is "-inf" at
+  // every s >= elen, and those positions contribute exactly 0.
   const float row_nll = nll[b];
-  if (!(row_nll < kClamp)) {
-    // clamped row (infeasible, or a length outside [0, L]): gradient 0
-    for (int t = 0; t < T; ++t)
-      for (int v = s; v < V; v += nth) out_row[t * t_stride + v] = 0.0f;
+  const int len = lengths[b];
+  if (!(row_nll < kClamp) || len < 0 || 2 * len + 1 > n) {
+    for (int i = s; i < T * V; i += n) {
+      const int t = i / V;
+      out[t * t_stride + (i - t * V)] = 0.0f;
+    }
     return;
   }
-  const float logz = -row_nll;
-  const float g = grad_out[b];
-  const int elen = 2 * lengths[b] + 1;
-  const int* row = labels + (size_t)b * L;
+  const int elen = 2 * len + 1;
+  const bool active = s < elen;
+  float* cbuf = smem;                        // [2][n]
+  float* emit = cbuf + 2 * n;                // [T][n]
+  float* term = emit + T * n;                // [T][n]
+  float* grad = term + T * n;                // [T][V]
+  float* blank_total = grad + T * V;         // [T]
+  int* zk = reinterpret_cast<int*>(blank_total + T);  // [n / 2]
 
   int z = blank;
   bool skip_dep = false;  // transition s -> s+2 allowed, i.e. skip[s+2]
   if (active && (s & 1)) {
+    const int* row = labels + (size_t)b * L;
     const int k = s >> 1;
     z = label_at(row, k, pad_id, blank);
     if (k + 1 < L) {
       const int z2 = label_at(row, k + 1, pad_id, blank);
       skip_dep = z2 != blank && z2 != z;
     }
+    zk[k] = z;
   }
   const bool z_ok = z >= 0 && z < V;
-  const float* lp = log_probs + (size_t)b * V + z;
-  const float* a_in = alpha + (size_t)b * T * S + s;
 
-  float* cbuf = smem;            // [2][nth]
-  float* acc = smem + 2 * nth;   // [2][V]
-  for (int v = s; v < 2 * V; v += nth) acc[v] = 0.0f;
+  // every global load of the chain, in flight together; each thread reads
+  // back only its own column, so waiting for its own copies is enough
+  if (active) {
+    const float* e_src = log_probs + (size_t)b * V + z;
+    const float* a_src = alpha + (size_t)b * T * S + s;
+    float* e_dst = emit + s;
+    float* a_dst = term + s;
+#pragma unroll 8
+    for (int t = 0; t < T; ++t) {
+      if (z_ok) copy_async(e_dst, e_src);
+      else *e_dst = kNeg;
+      copy_async(a_dst, a_src);
+      e_src += t_stride;
+      a_src += S;
+      e_dst += n;
+      a_dst += n;
+    }
+  }
+  const float logz = -row_nll;
+  const float g = grad_out[b];
+  for (int i = s; i < T * V; i += n) grad[i] = 0.0f;
+  // while the copies land: is this position its symbol's first in the
+  // label (the one that will sum the symbol's terms)?
   __syncthreads();
+  bool first = (s & 1) && active && z_ok;
+  for (int i = 0; i < (s >> 1) && first; ++i) first = zk[i] != z;
+  copy_async_wait();
 
+  float beta = s == elen - 1 || s == elen - 2 ? 0.0f : kNeg;
   for (int t = T - 1; t >= 0; --t) {
-    float* c_cur = cbuf + (t & 1) * nth;
-    float* acc_cur = acc + (t & 1) * V;
     if (active) {
-      float beta;
-      if (t == T - 1) {
-        beta = (s == elen - 1 || s == elen - 2) ? 0.0f : kNeg;
-      } else {
-        const float* c_nxt = cbuf + ((t + 1) & 1) * nth;
-        const float c1 = s + 1 < S ? c_nxt[s + 1] : kNeg;
-        const float c2 = skip_dep ? c_nxt[s + 2] : kNeg;
-        beta = s < elen ? lse3(c_nxt[s], c1, c2) : kNeg;
+      if (t < T - 1) {
+        const float* c_nxt = cbuf + ((t + 1) & 1) * n;
+        const float c1 = s + 1 < elen ? c_nxt[s + 1] : kNeg;
+        const float c2 = skip_dep && s + 2 < elen ? c_nxt[s + 2] : kNeg;
+        beta = lse3(c_nxt[s], c1, c2);
       }
-      const float e = z_ok ? lp[t * t_stride] : kNeg;
-      c_cur[s] = beta + e;
-      // alpha or beta at the surrogate gives expf(-1e30) == 0 exactly
-      const float val = -expf(a_in[(size_t)t * S] + beta - logz) * g;
-      if (z_ok && val != 0.0f) atomicAdd(&acc_cur[z], val);
+      cbuf[(t & 1) * n + s] = beta + emit[t * n + s];
+      term[t * n + s] += beta;
     }
     __syncthreads();
-    for (int v = s; v < V; v += nth) {
-      out_row[t * t_stride + v] = acc_cur[v];
-      acc_cur[v] = 0.0f;
+  }
+
+  // the terms, all T independent
+  if (active) {
+#pragma unroll 8
+    for (int t = 0; t < T; ++t)
+      term[t * n + s] = -expf(term[t * n + s] - logz) * g;
+  }
+  __syncthreads();
+
+  // the blank's total for each step (even s, in order), and each symbol's
+  // first position in the label sums the terms of all its positions, in
+  // label order, into its slot: one writer a slot, no atomics
+  for (int t = s; t < T; t += n) {
+    float sum = 0.0f;
+#pragma unroll 8
+    for (int e = 0; e < elen; e += 2) sum += term[t * n + e];
+    blank_total[t] = sum;
+  }
+  if (first) {
+#pragma unroll 8
+    for (int t = 0; t < T; ++t) grad[t * V + z] = term[t * n + s];
+    for (int i = (s >> 1) + 1; i < len; ++i) {
+      if (zk[i] != z) continue;
+#pragma unroll 8
+      for (int t = 0; t < T; ++t) grad[t * V + z] += term[t * n + 2 * i + 1];
+    }
+  }
+  __syncthreads();
+
+  // the row's (T, V) gradient to device memory; (t, v) of element
+  // i = s + m * n advance without a division
+  const int dt = n / V, dv = n - dt * V;
+  int t = s / V, v = s - t * V;
+#pragma unroll 4
+  for (int i = s; i < T * V; i += n) {
+    float x = grad[i];
+    if (v == blank) x = blank_total[t] + x;
+    out[t * t_stride + v] = x;
+    t += dt;
+    v += dv;
+    if (v >= V) {
+      v -= V;
+      ++t;
     }
   }
 }
@@ -249,10 +360,21 @@ extern "C" int qea_ctc_beta_bwd(const float* log_probs, const int* labels,
                                 const float* nll, const float* grad_out,
                                 float* grad_lp, int T, int B, int V, int L,
                                 int pad_id, int blank, cudaStream_t stream) {
-  const int S = 2 * L + 1;
-  const int threads = (S + 31) / 32 * 32;
-  const size_t smem = 2 * ((size_t)threads + V) * sizeof(float);
-  ctc_beta_grad_kernel<<<B, threads, smem, stream>>>(
+  // the band: every extended position a row that the forward did not clamp
+  // can use, min(S, 2T+1), in whole warps; and the kernel's shared memory
+  // (ctc_cuda.grad_smem_bytes says the same)
+  const int band = L < T ? 2 * L + 1 : 2 * T + 1;
+  const int threads = (band + 31) / 32 * 32;
+  const long long smem =
+      4 * (2LL * threads * (T + 1) + (long long)T * V + T + threads / 2);
+  if (smem > kMaxSmem) return (int)cudaErrorInvalidValue;
+  if (smem > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        ctc_beta_grad_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        (int)smem);
+    if (err != cudaSuccess) return (int)err;
+  }
+  ctc_beta_grad_kernel<<<B, threads, (size_t)smem, stream>>>(
       log_probs, labels, lengths, alpha, nll, grad_out, grad_lp, T, B, V, L,
       pad_id, blank);
   return (int)cudaGetLastError();

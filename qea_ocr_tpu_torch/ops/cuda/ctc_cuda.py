@@ -24,12 +24,22 @@ from qea_ocr_tpu_torch.ops.cuda import build
 NEG = -1e30          # the kernels' -inf surrogate
 INFEASIBLE_NLL = 1e5  # clamp for rows no alignment fits
 MAX_EXTENDED = 1024  # one thread per extended label: S = 2L+1 <= 1024
-MAX_VOCAB = 4096     # the backward's per-step sums live in shared memory
+GRAD_MAX_SMEM = 232448  # shared memory a block may have on this card
 
 # Kernel launches since the last reset (read and reset by chip_smoke.py):
 # the alpha (forward) kernel and the beta/gradient (backward) kernel.
 launches = 0
 bwd_launches = 0
+
+
+def grad_smem_bytes(T: int, V: int, L: int) -> int:
+    """Shared memory the backward kernel takes for a row (as its launcher
+    computes it). Its band holds every extended position a row that the
+    forward did not clamp can use, min(2L+1, 2T+1), rounded up to n threads
+    of a whole warp: c = beta + E (2, n), E and the terms (T, n) each, the
+    gradient (T, V), the blank's totals (T), the label's symbols (n / 2)."""
+    n = (min(2 * L + 1, 2 * T + 1) + 31) // 32 * 32
+    return 4 * (2 * n * (T + 1) + T * V + T + n // 2)
 
 
 def _lse3(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
@@ -159,7 +169,9 @@ def _lib() -> ctypes.CDLL:
     return lib
 
 
-def _check(log_probs, labels, lengths) -> None:
+def _check(log_probs, labels, lengths, grad: bool = False) -> None:
+    """Raise for what the kernels do not take, before any launch; `grad`
+    adds the backward kernel's limits."""
     if log_probs.dtype != torch.float32 or labels.dtype != torch.int32 \
             or lengths.dtype != torch.int32:
         raise TypeError("CTC kernel takes float32 log-probs and int32 labels "
@@ -174,9 +186,14 @@ def _check(log_probs, labels, lengths) -> None:
     if labels.shape[0] != B or lengths.shape[0] != B:
         raise ValueError(f"batch mismatch: log_probs B={B}, labels "
                          f"{labels.shape[0]}, lengths {lengths.shape[0]}")
-    if T < 1 or 2 * L + 1 > MAX_EXTENDED or not 1 <= V <= MAX_VOCAB:
+    if T < 1 or 2 * L + 1 > MAX_EXTENDED or V < 1:
         raise ValueError(f"CTC kernel takes T >= 1, 2L+1 <= {MAX_EXTENDED} "
-                         f"and V <= {MAX_VOCAB}; got T={T}, L={L}, V={V}")
+                         f"and V >= 1; got T={T}, L={L}, V={V}")
+    if grad and grad_smem_bytes(T, V, L) > GRAD_MAX_SMEM:
+        raise ValueError(f"CTC backward kernel takes T, V, L whose row fits "
+                         f"in {GRAD_MAX_SMEM} bytes of shared memory; got "
+                         f"T={T}, L={L}, V={V}: "
+                         f"{grad_smem_bytes(T, V, L)} bytes")
     if log_probs.device.type != "cuda" or not (
             log_probs.device == labels.device == lengths.device):
         raise ValueError("CTC kernel takes CUDA tensors on one device, got "
@@ -193,9 +210,10 @@ def ctc_nll_cuda(log_probs: torch.Tensor, labels: torch.Tensor,
     """Launch the alpha kernel: log_probs (T, B, V) float32, labels (B, L)
     int32, lengths (B,) int32, all contiguous on one CUDA device. Returns
     nll (B,), or with `want_alpha` the pair (nll, alpha (B, T, 2L+1)) that
-    `ctc_grad_cuda` takes. No gradient: `ctc_nll` carries it."""
+    `ctc_grad_cuda` takes (and then within the backward's limits). No
+    gradient: `ctc_nll` carries it."""
     global launches
-    _check(log_probs, labels, lengths)
+    _check(log_probs, labels, lengths, grad=want_alpha)
     T, B, V = log_probs.shape
     L = labels.shape[1]
     dev = log_probs.device
@@ -224,7 +242,7 @@ def ctc_grad_cuda(log_probs: torch.Tensor, labels: torch.Tensor,
     """Launch the beta/gradient kernel on `ctc_nll_cuda(...,
     want_alpha=True)`'s outputs: -> d log_probs (T, B, V) float32."""
     global bwd_launches
-    _check(log_probs, labels, lengths)
+    _check(log_probs, labels, lengths, grad=True)
     T, B, V = log_probs.shape
     L = labels.shape[1]
     dev = log_probs.device

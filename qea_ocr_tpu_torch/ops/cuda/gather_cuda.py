@@ -24,8 +24,7 @@ from qea_ocr_tpu_torch.ops.cuda import build
 # the forward kernel and the backward kernel.
 launches = 0
 bwd_launches = 0
-MAX_DOCS = 65535    # the backward's grid puts documents on blockIdx.y
-MAX_STRIPS = 2048   # the backward stages 24 bytes per strip in shared memory
+MAX_DOCS = 65535    # the backward's grid puts documents on blockIdx.z
 
 
 def text_stack_plain(docs: torch.Tensor, bboxes: torch.Tensor,
@@ -122,9 +121,8 @@ def text_stack_bwd_cuda(grads: torch.Tensor, bboxes: torch.Tensor,
     if grads.dim() != 4 or grads.shape[:2] != (D, S):
         raise ValueError(f"gradients {tuple(grads.shape)} do not match "
                          f"{D} documents x {S} strips")
-    if D > MAX_DOCS or S > MAX_STRIPS:
-        raise ValueError(f"gather backward takes D <= {MAX_DOCS} and "
-                         f"S <= {MAX_STRIPS}; got D={D}, S={S}")
+    if D > MAX_DOCS:
+        raise ValueError(f"gather backward takes D <= {MAX_DOCS}; got D={D}")
     h_out, w_out = grads.shape[2:]
     lib = _lib()
     out = torch.empty(tuple(docs_shape), dtype=torch.float32,

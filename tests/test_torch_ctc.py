@@ -207,3 +207,30 @@ def test_cuda_wrapper_validates_before_launch():
     with pytest.raises(ValueError):
         ctc_cuda.ctc_grad_cuda(lp.detach(), lab, ln, torch.zeros(2, 4, 7),
                                torch.zeros(2), torch.ones(2), 5)  # CPU tensors
+
+
+@pytest.mark.parametrize("T,L,V", [
+    (120, 100, 95),    # a long sequence at the main path's L and V
+    (16, 3, 4096),     # a large vocabulary
+    (200, 511, 20),    # the longest labels, and a long sequence
+])
+def test_cuda_backward_limits_raise_before_launch(T, L, V):
+    """The backward kernel's limit (its row's shared memory) is checked
+    before the device, so it raises on CPU tensors too, for the backward and
+    for the forward when it is asked for the backward's alpha; nothing is
+    launched. Without alpha the forward takes such shapes (it raises here
+    only for the device)."""
+    assert ctc_cuda.grad_smem_bytes(T, V, L) > ctc_cuda.GRAD_MAX_SMEM
+    assert ctc_cuda.grad_smem_bytes(31, 95, 100) < ctc_cuda.GRAD_MAX_SMEM / 3
+    lp = torch.zeros(T, 2, V)
+    lab = torch.zeros(2, L, dtype=torch.int32)
+    ln = torch.ones(2, dtype=torch.int32)
+    counts = (ctc_cuda.launches, ctc_cuda.bwd_launches)
+    with pytest.raises(ValueError, match="backward kernel takes"):
+        ctc_cuda.ctc_grad_cuda(lp, lab, ln, torch.zeros(2, T, 2 * L + 1),
+                               torch.zeros(2), torch.ones(2), V)
+    with pytest.raises(ValueError, match="backward kernel takes"):
+        ctc_cuda.ctc_nll_cuda(lp, lab, ln, V, want_alpha=True)
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        ctc_cuda.ctc_nll_cuda(lp, lab, ln, V)
+    assert (ctc_cuda.launches, ctc_cuda.bwd_launches) == counts

@@ -139,3 +139,82 @@ def test_no_gradient_reaches_the_boxes_or_a_detached_document():
     with torch.no_grad():
         out = get_text_stack_batch(docs.clone().requires_grad_(), boxes)
     assert not out.requires_grad
+
+
+def _edge_boxes(H, W):
+    """Boxes out of every corner and edge, wholly beyond an edge, larger than
+    the kernel's 32 x 128 block tile, overlapping, empty, the data layer's
+    dummy and one in the middle (`chip_smoke.py` runs the same set on the
+    card)."""
+    return np.array([
+        (-6, -4, 10, 8), (W - 10, -5, W + 20, 6),
+        (-8, H - 6, 12, H + 9), (W - 8, H - 6, W + 12, H + 9),
+        (20, -9, 60, 4), (W - 10, 5, W + 20, 15),
+        (30, H - 3, 90, H + 20), (-15, 12, 6, 20),
+        (W + 3, 10, W + 30, 20), (5, -40, 50, -25),
+        (5, 5, 305, 65),
+        (10, 10, 30, 25), (12, 12, 32, 27),
+        (0, 0, 0, 0), (0, 0, 1, 1),
+        (W // 2 - 20, H // 2 - 8, W // 2 + 20, H // 2 + 8)], np.int32)
+
+
+def _tile_culled(bboxes, g, H, W, rows=4, cols=128):
+    """The backward as `csrc/gather.cu` tiles it, in numpy: each warp's
+    `rows` x `cols` pixels keep only the boxes whose source range meets
+    theirs, opened to +-infinity at the document's edges; each pixel then
+    walks those boxes in strip order. Also returns how many boxes each
+    sub-tile kept."""
+    D, S = bboxes.shape[:2]
+    h_out, w_out = g.shape[-2:]
+    far = 1 << 30
+    out = np.zeros((D, 1, H, W), np.float32)
+    kept = []
+    for d in range(D):
+        src = []
+        for x_min, y_min, x_max, y_max in (map(int, b) for b in bboxes[d]):
+            row0 = y_min - (h_out - (y_max - y_min)) // 2
+            col0 = x_min - (w_out - (x_max - x_min)) // 2
+            src.append((max(y_min, row0), min(y_max, row0 + h_out) - 1,
+                        max(x_min, col0), min(x_max, col0 + w_out) - 1,
+                        row0, col0))
+        for y0 in range(0, H, rows):
+            y1 = min(y0 + rows, H) - 1
+            wr = (-far if y0 == 0 else y0, far if y1 == H - 1 else y1)
+            for x0 in range(0, W, cols):
+                x1 = min(x0 + cols, W) - 1
+                wc = (-far if x0 == 0 else x0, far if x1 == W - 1 else x1)
+                live = [(s, b) for s, b in enumerate(src)
+                        if b[0] <= b[1] and b[2] <= b[3] and b[0] <= wr[1]
+                        and b[1] >= wr[0] and b[2] <= wc[1]
+                        and b[3] >= wc[0]]
+                kept.append(len(live))
+                for y in range(y0, y1 + 1):
+                    for x in range(x0, x1 + 1):
+                        total = np.float32(0)
+                        for s, (ra, rb, ca, cb, row0, col0) in live:
+                            r_a = max(-far if y == 0 else y, ra)
+                            r_b = min(far if y == H - 1 else y, rb)
+                            c_a = max(-far if x == 0 else x, ca)
+                            c_b = min(far if x == W - 1 else x, cb)
+                            for r in range(r_a, r_b + 1):
+                                for c in range(c_a, c_b + 1):
+                                    total += g[d, s, 0, r - row0, c - col0]
+                        out[d, 0, y, x] = total
+    return out, kept
+
+
+@pytest.mark.parametrize("H,W", [(37, 70), (33, 129), (45, 131)])
+def test_tile_culled_formulation_of_the_kernel_equals_autograd(H, W):
+    """The tiled, culled loop the CUDA backward kernel runs gives what
+    autograd through the plain version gives, on documents that are
+    multiples of neither the tile nor (in W) of 4, with boxes out of every
+    edge and corner; every sub-tile culls some of the boxes."""
+    rng = np.random.default_rng(H * W)
+    boxes = _edge_boxes(H, W)
+    bboxes = np.stack([boxes, boxes[::-1]])
+    D, S = bboxes.shape[:2]
+    docs = rng.random((D, 1, H, W), dtype=np.float32)
+    g = rng.normal(size=(D, S, 1, 32, 128)).astype(np.float32)
+    got, kept = _tile_culled(bboxes, g, H, W)
+    np.testing.assert_allclose(got, _port_grad(docs, bboxes, g), atol=1e-5)
+    assert max(kept) < S
