@@ -26,18 +26,22 @@ Phases; any failure raises, so the exit code is non-zero:
                  37x70, 400x510 and 33x129 (not multiples of the backward's
                  32x128 tile, nor of 4 in W) with boxes out of every edge
                  and corner, wholly beyond an edge, larger than a tile,
-                 overlapping and empty. The CTC alpha recursion and its
-                 beta/gradient recursion to a relative 1e-5 (floor 1) at
-                 B = 1, 128 and 1536 (T=31) and 64 (T=38), L = 100 with a
-                 full-length row, infeasible rows at exactly 1e5 and
-                 gradient exactly 0, the gradient bitwise repeatable; a T
-                 (120) whose row does not fit the backward's shared memory
-                 must raise before any launch. Median
-                 times: each kernel's device time (launches queued behind
-                 a spin, so Python's launch cost is hidden), its time as one
-                 call from Python, the plain version's time a call, the
-                 device time of `F.ctc_loss` as a yardstick (never on the
-                 path), and each kernel's bound from the bytes it must move.
+                 overlapping and empty, the forward there also at tiles of
+                 17x66 (w_out % 4 != 0) and 32x130 (w_out > 128). The CTC
+                 alpha recursion (NLL, and alpha over the band it writes)
+                 and its beta/gradient recursion to a relative 1e-5 (floor
+                 1) at B = 1, 128 and 1536 (T=31) and 64 (T=38), L = 100
+                 with a full-length row, infeasible rows at exactly 1e5 and
+                 gradient exactly 0, the gradient bitwise repeatable; the
+                 forward without alpha at T = 200, L = 511; a T (120) whose
+                 row does not fit the backward's shared memory must raise
+                 before any launch. Median times: each kernel's device time
+                 (launches queued behind a spin, so Python's launch cost is
+                 hidden; the CTC forward with alpha, as the training step
+                 calls it, and without), its time as one call from Python,
+                 the plain version's time a call, the device time of
+                 `F.ctc_loss` as a yardstick (never on the path), and each
+                 kernel's bound from the bytes it must move.
                  The channel-major conv: the eight convs of one full-width
                  UNet eval forward (D=8), with the fused shift + ReLU
                  epilogue and without, and odd shapes at the edges of the
@@ -115,6 +119,7 @@ D, S = 8, 16               # documents per batch, strip slots per document
 
 KERNEL_REL_TOL = 1e-5      # CTC kernels vs plain, relative with a floor of 1
 GATHER_BWD_ATOL = 1e-6     # gather backward vs autograd through the plain one
+ODD_TILES = ((17, 66), (32, 130))  # gather forward tile sizes beside 32x128
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
 F32_FLOPS = 67e12          # float32 outside the tensor cores, same sheet
 BF16_FLOPS = 989e12        # bfloat16 tensor cores, dense, same sheet
@@ -349,6 +354,14 @@ def check_gather_edges(torch, dev) -> float:
         got = gather_cuda.text_stack_cuda(docs, bb)
         if not torch.equal(got, gather_cuda.text_stack_plain(docs, bb)):
             raise AssertionError(f"gather kernel != plain at {H}x{W}")
+        # tiles whose width is not a multiple of 4 (scalar stores), or
+        # wider than the 128 columns a warp covers in one pass
+        for h_out, w_out in ODD_TILES:
+            if not torch.equal(
+                    gather_cuda.text_stack_cuda(docs, bb, h_out, w_out),
+                    gather_cuda.text_stack_plain(docs, bb, h_out, w_out)):
+                raise AssertionError(f"gather kernel != plain at {H}x{W}, "
+                                     f"tiles {h_out}x{w_out}")
         g = torch.randn(got.shape, device=dev, generator=gen)
         d_docs = gather_cuda.text_stack_bwd_cuda(g, bb, docs.shape)
         again = gather_cuda.text_stack_bwd_cuda(g, bb, docs.shape)
@@ -368,9 +381,10 @@ def check_gather_edges(torch, dev) -> float:
             raise AssertionError(f"gather backward kernel vs plain at "
                                  f"{H}x{W}: max abs err {err}")
         worst = max(worst, err)
+        tiles = ", ".join(f"{h}x{w}" for h, w in ((32, 128), *ODD_TILES))
         log(f"[kernels] gather edges D=2 S=16 doc {H}x{W}: forward bitwise "
-            f"equal; backward max abs err {err:.3g} (largest gradient "
-            f"{largest:.3g}), repeatable bitwise")
+            f"equal (tiles {tiles}); backward max abs err {err:.3g} (largest "
+            f"gradient {largest:.3g}), repeatable bitwise")
     return worst
 
 
@@ -472,8 +486,16 @@ def check_ctc(torch, dev, card):
         if float(d_lp[:, infeasible].abs().sum()) != 0.0 \
                 or float(d_plain[:, infeasible].abs().sum()) != 0.0:
             raise AssertionError("gradient of an infeasible row is not 0")
-        a_rel = float(((alpha.permute(1, 0, 2) - p_alpha).abs()
-                       / p_alpha.abs().clamp(min=1)).max())
+        # the kernel's alpha covers the band, (B, T, n): held where it
+        # computes positions, s < min(n, S), which holds the band
+        n = ctc_cuda.band_threads(T, L)
+        if tuple(alpha.shape) != (B, T, n):
+            raise AssertionError(f"alpha {tuple(alpha.shape)}, want "
+                                 f"{(B, T, n)}")
+        cols = min(n, 2 * L + 1)
+        a_rel = float(((alpha[..., :cols] - p_alpha.permute(1, 0, 2)[
+            ..., :cols]).abs() / p_alpha.permute(1, 0, 2)[..., :cols].abs()
+            .clamp(min=1)).max())
         berr = float((d_lp - d_plain).abs().max())
         brel = float(((d_lp - d_plain).abs()
                       / d_plain.abs().clamp(min=1)).max())
@@ -507,6 +529,8 @@ def check_ctc(torch, dev, card):
             lp, labels, lengths, alpha, nll, g, V))
         bplain_ms = median_ms(torch, lambda: ctc_cuda.ctc_grad_plain(
             lp, labels, lengths, p_alpha, p_nll, g, V))
+        # the training step asks for alpha at each of its launches: that is
+        # the forward's time on the main path
         alpha_ms = device_ms(torch, lambda: ctc_cuda.ctc_nll_cuda(
             lp, labels, lengths, V, want_alpha=True))
         log(f"[kernels] {what}; forward: kernel {ms:.4f} ms on the device, "
@@ -520,26 +544,32 @@ def check_ctc(torch, dev, card):
             # bytes: log-probs, labels, lengths in, nll out; operations: one
             # 3-way log-sum-exp (3 exp, 1 log, about 8 adds, maxes and
             # compares) per step and position below each row's extended
-            # length. The backward needs alpha and the emissions only below
-            # the extended length of a row that is not clamped (its other
-            # rows' gradient is 0): those, labels, lengths, nll and the
-            # upstream gradient in, d log_probs out; per such cell the
-            # log-sum-exp, an exp and 3 adds
+            # length. With alpha, the alpha its only reader needs: the
+            # backward reads it only below the extended length of a row
+            # that is not clamped (its other rows' gradient is 0). The
+            # backward needs that alpha and the emissions there: those,
+            # labels, lengths, nll and the upstream gradient in, d log_probs
+            # out; per such cell the log-sum-exp, an exp and 3 adds
             elen = 2 * lengths.clamp(0, L) + 1
             cells = T * int(elen.sum())
             live_cells = T * int(elen[nll < ctc_cuda.INFEASIBLE_NLL].sum())
             io = lp.nbytes + labels.nbytes + lengths.nbytes + nll.nbytes
             fb, fby = bound(io, 12 * cells)
+            ab, aby = bound(io + 4 * live_cells, 12 * cells)
             bb_, bby = bound(labels.nbytes + lengths.nbytes + nll.nbytes
                              + g.nbytes + d_lp.nbytes + 8 * live_cells,
                              16 * live_cells)
             fwd = dict(ms=ms, call_ms=call_ms, plain_ms=plain_ms, bound_ms=fb,
                        bound_by=fby, library_ms=lib_fwd_ms,
-                       with_alpha_ms=alpha_ms)
+                       with_alpha_ms=alpha_ms, with_alpha_bound_ms=ab,
+                       with_alpha_bound_by=aby)
             bwd = dict(ms=bms, call_ms=bcall_ms, plain_ms=bplain_ms,
                        bound_ms=bb_, bound_by=bby, library_ms=lib_bwd_ms)
         else:
             fwd[f"ms_b{B}"], bwd[f"ms_b{B}"] = ms, bms
+            fwd[f"with_alpha_ms_b{B}"] = alpha_ms
+
+    worst_fwd = max(worst_fwd, check_ctc_long(torch, dev))
 
     # a T beyond the backward's shared memory: refused before any launch,
     # forward included
@@ -549,8 +579,9 @@ def check_ctc(torch, dev, card):
                                                want_alpha=True),
                  lambda: ctc_cuda.ctc_grad_cuda(
                      lp, labels, lengths, torch.zeros(
-                         (4, lp.shape[0], 2 * labels.shape[1] + 1),
-                         device=dev), torch.zeros(4, device=dev), g, V)):
+                         (4, lp.shape[0], ctc_cuda.band_threads(
+                             lp.shape[0], labels.shape[1])), device=dev),
+                     torch.zeros(4, device=dev), g, V)):
         try:
             call()
         except ValueError:
@@ -564,6 +595,41 @@ def check_ctc(torch, dev, card):
         "raise ValueError before any launch")
     fwd["max_abs_err"], bwd["max_abs_err"] = worst_fwd, worst_bwd
     return fwd, bwd
+
+
+def check_ctc_long(torch, dev) -> float:
+    """The forward without alpha at the longest labels it takes, L = 511
+    (2L+1 = 1023 <= 1024), and T = 200, B = 4, V = 20: a band of 416
+    threads and an emission ring of several chunks. Rows: the empty label,
+    150 random symbols, 200 symbols with no repeat (exactly T frames: the
+    band's last positions) and 511 (infeasible: exactly 1e5). Returns the
+    largest absolute error against the plain version."""
+    from qea_ocr_tpu_torch.ops.cuda import ctc_cuda
+
+    T, B, V, L = 200, 4, 20, 511
+    rng = np.random.default_rng(26)
+    logits = torch.from_numpy(rng.normal(size=(T, B, V)).astype(np.float32))
+    lp = torch.log_softmax(3 * logits, dim=2).to(dev)
+    lengths = np.array([0, 150, 200, 511], np.int32)
+    labels = np.full((B, L), V, np.int32)           # pad_id = V
+    labels[1, :150] = rng.integers(1, V, 150)
+    labels[2, :200] = 1 + np.arange(200) % 2
+    labels[3] = rng.integers(1, V, L)
+    labels = torch.from_numpy(labels).to(dev)
+    lengths = torch.from_numpy(lengths).to(dev)
+    got = ctc_cuda.ctc_nll_cuda(lp, labels, lengths, V)
+    want = ctc_cuda.ctc_nll_plain(lp, labels, lengths, V)
+    torch.cuda.synchronize()
+    rel = float(((got - want).abs() / want.abs().clamp(min=1)).max())
+    if not (float(got[3]) == 1e5 == float(want[3])) \
+            or not bool((want[:3] < 1e5).all()) or rel > KERNEL_REL_TOL:
+        raise AssertionError(f"CTC forward at T={T} L={L}: kernel "
+                             f"{got.tolist()}, plain {want.tolist()}")
+    err = float((got - want).abs().max())
+    log(f"[kernels] ctc forward without alpha T={T} V={V} L={L} B={B} "
+        f"({ctc_cuda.band_threads(T, L)} threads a row): max abs err "
+        f"{err:.3g}, max rel err {rel:.3g}, the infeasible row exactly 1e5")
+    return err
 
 
 # The channel-major convs of one UNet eval forward at full width, D=8:

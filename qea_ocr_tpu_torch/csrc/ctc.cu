@@ -36,31 +36,58 @@
 // 1.5 MB of log-probs and the backward writes as much, so each is a chain of
 // 31 short latency-bound steps.
 //
-// Forward design: one block per batch row, one thread per extended
-// position (S is rounded up to a whole number of warps; at most 1024, so
-// L <= 511). The recursion's state lives in shared memory, double-buffered,
-// so each step needs exactly one __syncthreads: step t reads buffer t%2 and
-// writes buffer (t+1)%2. Each thread keeps its own z[s] and skip flag in
-// registers and reads its emission log_probs[t, b, z[s]] directly; the TPU
-// kernel's one-hot einsum was a workaround for the TPU's weak gathers.
-// expf/logf are the accurate library functions (no fast-math intrinsics),
-// in both kernels.
+// The band. Only positions s < min(S, 2T+1) can ever be reached (at step t
+// only s <= 2t+1), and the recursion at s reads only s-1 and s-2, so the
+// positions above the band never change a value below it. A row the forward
+// does not clamp has an alignment in T steps, so len <= T and
+// elen <= min(S, 2T+1): both kernels work on that band alone, one thread a
+// position, rounded up to whole warps, n = round32(min(2L+1, 2T+1))
+// (`band_threads`; 64 threads at T=31, L=100 against S=201: two warps).
+//
+// Forward design: one block per batch row, one thread per position of the
+// band (n <= 1024, so any T while L <= 511). Every band position is computed
+// from the same operands in the same order as over the full S, so the NLL
+// is the same bit for bit; a row whose last position elen-1 lies at or
+// beyond n has len > T, cannot be feasible and gives exactly 1e5, as over
+// the full S. The recursion's state lives in shared memory,
+// double-buffered, so each step needs exactly one __syncthreads: step t
+// reads buffer t%2 and writes buffer (t+1)%2; each thread keeps its own
+// alpha, z[s] and skip flag in registers. Nothing on the chain waits for
+// device memory: before the first step the emissions go into a ring in
+// shared memory as cp.async copies, in chunks of steps (all T at once at
+// T=31; else two buffers of up to 32 steps, the next chunk landing while
+// the chain runs on this one, sized so that a block never needs more than
+// the 48 KB it may have without opting in). The blank's emission of a step
+// is that of every even position and every pad, so it is copied once a
+// step and shared (one copy a thread, its address known before the labels
+// arrive); a position with another class copies its own column, and reads
+// back only that. `lengths[b]` is read early too. A step is then the
+// log-sum-exp (`lse3`, with no branch), two shared reads, one shared write
+// and one barrier. The TPU kernel's one-hot einsum was a workaround for the
+// TPU's weak gathers. expf/logf are the accurate library functions
+// (no fast-math intrinsics), in both kernels.
+//
+// Tried for the forward, and slower on the card (PERF.md): each position
+// gathering all its emissions itself (1,984 scattered copies a row at T=31,
+// a prologue as long as the chain at B=1536); the exchange by warp
+// shuffles, each warp reading the warp below's top position from a tagged
+// shared slot instead of a block barrier (slower even at one warp, with no
+// slot to wait for); chunks of 8 steps; alpha stored from shared memory
+// after each chunk instead of once a step.
 //
 // alpha for the backward: when a gradient is wanted the forward also writes
-// alpha, as (B, T, S) float32, and the backward reads it. Recomputing it in
-// the backward instead would double that kernel's serial chain (62 dependent
-// steps for 31), while the write is one coalesced S-float store per step
-// that nothing waits for (38 MB at B=1536). Without a gradient the pointer
+// alpha over the band, as (B, T, n) float32 (positions at or above S hold
+// the -1e30 surrogate), and the backward reads it. Recomputing it in the
+// backward instead would double that kernel's serial chain (62 dependent
+// steps for 31), while the write is one coalesced n-float store per step
+// that nothing waits for (12 MB at B=1536). Without a gradient the pointer
 // is null and nothing is written.
 //
-// Backward design. Only a band of positions can matter: a row the forward
-// did not clamp has an alignment in T steps, so len <= T and every s that
-// beta can reach lies below elen <= min(S, 2T+1) (63 at T=31, against
-// S=201); a clamped row's gradient is 0 and its block stores zeros and
-// stops. So a block takes one row with one thread per position of that
-// band (64 threads at T=31, two warps), and the chain of T steps has one
-// __syncthreads each on the double-buffered c = beta + E. What it keeps off
-// the chain:
+// Backward design. Every s that beta can reach lies below elen, inside the
+// band; a clamped row's gradient is 0 and its block stores zeros and stops.
+// So a block takes one row with one thread per position of the band, and
+// the chain of T steps has one __syncthreads each on the double-buffered
+// c = beta + E. What it keeps off the chain:
 //   * global memory. Before the chain each thread issues all T of its alpha
 //     reads (coalesced across threads) and all T of its emission reads (a
 //     gather inside one 380-byte row of log-probs) as cp.async copies into
@@ -79,20 +106,22 @@
 // bitwise repeatable; against the plain version (one scatter_add) it
 // differs by float32 rounding of that order.
 //
-// Tried on the way, and slower on the card (PERF.md): all T loads held in
-// registers over the full S with fully unrolled steps (about 100 registers,
-// two blocks an SM: slower than the first port at large B); the same from
-// shared memory with rolled steps; one warp a row over the band with two
-// positions a lane (the two positions of a step run one after the other).
-// What is left is the chain itself: one accurate three-way log-sum-exp, a
-// shared round trip and a barrier a step, as in the forward.
+// Tried on the way for the backward, and slower on the card (PERF.md): all
+// T loads held in registers over the full S with fully unrolled steps
+// (about 100 registers, two blocks an SM: slower than the first port at
+// large B); the same from shared memory with rolled steps; one warp a row
+// over the band with two positions a lane (the two positions of a step run
+// one after the other). What is left is the chain itself: one accurate
+// three-way log-sum-exp, a shared round trip and a barrier a step, as in
+// the forward.
 //
 // Hopper's own units do not apply. There is no matrix product, so wgmma has
-// nothing to do. TMA wants 16-byte-aligned starts and strides: a row of
-// log-probs is 380 bytes at a stride of B*380, and a row's alpha block
-// (T*S floats, 24,924 bytes at T=31, L=100) is not a multiple of 16 either;
-// a TMA copy from a start that is not 16-byte aligned is an illegal
+// nothing to do. The emissions are a gather, one float per position out of
+// a 380-byte row of log-probs at a stride of B*380: no TMA box holds them,
+// and a TMA copy from a start that is not 16-byte aligned is an illegal
 // instruction on this card. cp.async (4 bytes a copy) takes any alignment.
+// alpha's band leaves and returns as coalesced n-float rows, which plain
+// loads and stores already move at full width.
 #include <cuda_runtime.h>
 
 namespace {
@@ -100,83 +129,24 @@ namespace {
 constexpr float kNeg = -1e30f;
 constexpr float kClamp = 1e5f;
 constexpr int kMaxSmem = 232448;  // dynamic shared memory a block may have
+constexpr int kFwdSmem = 48 * 1024;  // shared memory without opting in
+constexpr int kFwdChunk = 32;       // steps a chunk of the forward's ring
 
+// The three-way log-sum-exp of both chains, -1e30 where all three are at or
+// below -5e29. Both sides are computed and one is selected, with no branch
+// (every operand is finite or -inf, so nothing traps): in both chains the
+// positions just above the reachable front diverge from those below it at
+// every step, and the branch cost more than the arithmetic it skips.
 __device__ __forceinline__ float lse3(float a, float b, float c) {
   const float m = fmaxf(a, fmaxf(b, c));
-  if (!(m > 0.5f * kNeg)) return kNeg;
-  return m + logf(expf(a - m) + expf(b - m) + expf(c - m));
+  const float r = m + logf(expf(a - m) + expf(b - m) + expf(c - m));
+  return m > 0.5f * kNeg ? r : kNeg;
 }
 
 __device__ __forceinline__ int label_at(const int* row, int k, int pad_id,
                                         int blank) {
   const int v = row[k];
   return v == pad_id ? blank : v;
-}
-
-__global__ void ctc_alpha_kernel(const float* __restrict__ log_probs,
-                                 const int* __restrict__ labels,
-                                 const int* __restrict__ lengths,
-                                 float* __restrict__ nll,
-                                 float* __restrict__ alpha_out, int T, int B,
-                                 int V, int L, int pad_id, int blank) {
-  extern __shared__ float alpha[];  // 2 * blockDim.x floats
-  const int b = blockIdx.x;
-  const int s = threadIdx.x;
-  const int S = 2 * L + 1;
-  const bool active = s < S;
-  const int* row = labels + (size_t)b * L;
-
-  int z = blank;
-  bool skip = false;
-  if (active && (s & 1)) {
-    const int k = s >> 1;
-    z = label_at(row, k, pad_id, blank);
-    if (k >= 1) {
-      skip = z != blank && z != label_at(row, k - 1, pad_id, blank);
-    }
-  }
-  const bool z_ok = z >= 0 && z < V;
-  const float* lp = log_probs + (size_t)b * V + z;
-  const size_t t_stride = (size_t)B * V;
-
-  float* cur = alpha;
-  float* nxt = alpha + blockDim.x;
-  // alpha_out is (B, T, S); null when no gradient is wanted
-  float* a_out = alpha_out ? alpha_out + (size_t)b * T * S + s : nullptr;
-  if (active) {
-    cur[s] = (s < 2 && z_ok) ? lp[0] : kNeg;
-    if (a_out) a_out[0] = cur[s];
-  }
-  __syncthreads();
-  for (int t = 1; t < T; ++t) {
-    if (active) {
-      const float a1 = s >= 1 ? cur[s - 1] : kNeg;
-      const float a2 = skip ? cur[s - 2] : kNeg;
-      const float e = z_ok ? lp[t * t_stride] : kNeg;
-      const float a = lse3(cur[s], a1, a2) + e;
-      nxt[s] = a;
-      if (a_out) a_out[(size_t)t * S] = a;
-    }
-    __syncthreads();
-    float* tmp = cur;
-    cur = nxt;
-    nxt = tmp;
-  }
-
-  if (s == 0) {
-    const int len = lengths[b];
-    float out = kClamp;
-    if (len >= 0 && len <= L) {
-      const int elen = 2 * len + 1;
-      const float l1 = cur[elen - 1];
-      const float l2 = elen >= 2 ? cur[elen - 2] : kNeg;
-      const float m = fmaxf(l1, l2);
-      if (m > 0.5f * kNeg) {
-        out = fminf(-(m + logf(expf(l1 - m) + expf(l2 - m))), kClamp);
-      }
-    }
-    nll[b] = out;
-  }
 }
 
 // 4-byte copy from device to shared memory that does not hold the thread
@@ -191,8 +161,151 @@ __device__ __forceinline__ void copy_async_wait() {
   asm volatile("cp.async.wait_all;\n" ::);
 }
 
-// One block per batch row, one thread per extended position of the band
-// s < n = blockDim.x that holds every live position; see the header.
+__device__ __forceinline__ void copy_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+
+// wait until at most `kPending` of this thread's committed groups are in
+// flight
+template <int kPending>
+__device__ __forceinline__ void copy_async_wait_group() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(kPending));
+}
+
+// One block per batch row, one thread per position of the band
+// s < n = blockDim.x; see the header. Shared memory, in 4-byte words: alpha
+// (2, n), double-buffered, then the emission ring: one buffer of `chunk`
+// steps (chunk = T) or two (chunk < T), each the blank's emissions (chunk)
+// and the other positions' (chunk, n).
+__global__ void __launch_bounds__(1024)
+ctc_alpha_kernel(const float* __restrict__ log_probs,
+                 const int* __restrict__ labels,
+                 const int* __restrict__ lengths, float* __restrict__ nll,
+                 float* __restrict__ alpha_out, int T, int B, int V, int L,
+                 int chunk, int pad_id, int blank) {
+  extern __shared__ float smem[];
+  const int b = blockIdx.x;
+  const int s = threadIdx.x;
+  const int n = blockDim.x;
+  const int S = 2 * L + 1;
+  const bool active = s < S;
+  const size_t t_stride = (size_t)B * V;
+  const int n_chunks = (T + chunk - 1) / chunk;
+  float* cur = smem;
+  float* nxt = smem + n;
+  float* blank_ring = smem + 2 * n;
+  float* ring = blank_ring + (n_chunks > 1 ? 2 : 1) * chunk;
+
+  // The blank's emission of each step is every blank position's (and every
+  // pad's): thread s copies that of the chunk's step s (chunk <= 32 <= n),
+  // into a ring all threads read after a barrier. Its address does not
+  // depend on the labels, so chunk 0's copies go out before they load.
+  const bool blank_ok = blank >= 0 && blank < V;
+  const float* blank_src = log_probs + (size_t)b * V + blank;
+  auto issue_blank = [&](int k) {
+    const int t = k * chunk + s;
+    if (blank_ok && s < chunk && t < T)
+      copy_async(blank_ring + (k & 1) * chunk + s, blank_src + t * t_stride);
+  };
+  issue_blank(0);
+  const int len = lengths[b];  // read now, used after the chain
+
+  int z = blank;
+  bool skip = false;
+  if (active && (s & 1)) {
+    const int* row = labels + (size_t)b * L;
+    const int k = s >> 1;
+    z = label_at(row, k, pad_id, blank);
+    if (k >= 1) {
+      skip = z != blank && z != label_at(row, k - 1, pad_id, blank);
+    }
+  }
+  const bool z_ok = z >= 0 && z < V;
+  // a position whose class is not the blank has a column of its own: its
+  // emissions, or -1e30 where the class is out of range
+  const bool own = active && !(z == blank && z_ok);
+  const float* e_src = log_probs + (size_t)b * V + z;
+
+  // this thread's own column of chunk k into buffer k % 2; it closes chunk
+  // k's commit group, the blank's copy included
+  auto issue_own = [&](int k) {
+    if (own) {
+      float* dst = ring + (k & 1) * chunk * n + s;
+      const int t1 = min(T, (k + 1) * chunk);
+      for (int t = k * chunk; t < t1; ++t, dst += n) {
+        if (z_ok) copy_async(dst, e_src + t * t_stride);
+        else *dst = kNeg;
+      }
+    }
+    copy_async_commit();
+  };
+  issue_own(0);
+  if (n_chunks > 1) {
+    issue_blank(1);
+    issue_own(1);
+  }
+
+  // alpha_out is (B, T, n); null when no gradient is wanted
+  float* a_out = alpha_out ? alpha_out + (size_t)b * T * n + s : nullptr;
+  float mine = kNeg;  // this position's alpha at the last step
+  for (int k = 0; k < n_chunks; ++k) {
+    if (k + 1 < n_chunks) copy_async_wait_group<1>();
+    else copy_async_wait_group<0>();
+    __syncthreads();  // the blank's copies of chunk k, for every thread
+    const int e_stride = own ? n : 1;
+    const float* e = own ? ring + (k & 1) * chunk * n + s
+                         : blank_ring + (k & 1) * chunk;
+    int t = k * chunk;
+    const int t1 = min(T, t + chunk);
+    if (t == 0) {
+      mine = active && s < 2 ? e[0] : kNeg;
+      cur[s] = mine;
+      if (a_out) a_out[0] = mine;
+      __syncthreads();
+      ++t;
+      e += e_stride;
+    }
+    for (; t < t1; ++t, e += e_stride) {
+      if (active) {
+        const float a1 = s >= 1 ? cur[s - 1] : kNeg;
+        const float a2 = skip ? cur[s - 2] : kNeg;
+        mine = lse3(mine, a1, a2) + *e;
+        nxt[s] = mine;
+      }
+      if (a_out) a_out[(size_t)t * n] = mine;
+      __syncthreads();
+      float* tmp = cur;
+      cur = nxt;
+      nxt = tmp;
+    }
+    // every thread is past its last read of buffer k % 2
+    if (k + 2 < n_chunks) {
+      issue_blank(k + 2);
+      issue_own(k + 2);
+    }
+  }
+
+  if (s == 0) {
+    float out = kClamp;
+    if (len >= 0 && len <= L) {
+      const int elen = 2 * len + 1;
+      // elen > n: len > T, so both positions are out of reach and the row
+      // is clamped, as over the full S
+      if (elen <= n) {
+        const float l1 = cur[elen - 1];
+        const float l2 = elen >= 2 ? cur[elen - 2] : kNeg;
+        const float m = fmaxf(l1, l2);
+        if (m > 0.5f * kNeg) {
+          out = fminf(-(m + logf(expf(l1 - m) + expf(l2 - m))), kClamp);
+        }
+      }
+    }
+    nll[b] = out;
+  }
+}
+
+// One block per batch row, one thread per position of the band
+// s < n = blockDim.x; see the header.
 // Shared memory, in 4-byte words: c = beta + E (2, n), E and the terms
 // (T, n) each, the row's gradient (T, V), the blank's totals (T) and the
 // label's symbols z[2k+1] (n / 2).
@@ -209,7 +322,6 @@ ctc_beta_grad_kernel(const float* __restrict__ log_probs,
   const int b = blockIdx.x;
   const int s = threadIdx.x;
   const int n = blockDim.x;
-  const int S = 2 * L + 1;
   const size_t t_stride = (size_t)B * V;
   float* out = grad_lp + (size_t)b * V;
 
@@ -252,7 +364,7 @@ ctc_beta_grad_kernel(const float* __restrict__ log_probs,
   // back only its own column, so waiting for its own copies is enough
   if (active) {
     const float* e_src = log_probs + (size_t)b * V + z;
-    const float* a_src = alpha + (size_t)b * T * S + s;
+    const float* a_src = alpha + (size_t)b * T * n + s;
     float* e_dst = emit + s;
     float* a_dst = term + s;
 #pragma unroll 8
@@ -261,7 +373,7 @@ ctc_beta_grad_kernel(const float* __restrict__ log_probs,
       else *e_dst = kNeg;
       copy_async(a_dst, a_src);
       e_src += t_stride;
-      a_src += S;
+      a_src += n;
       e_dst += n;
       a_dst += n;
     }
@@ -339,17 +451,31 @@ ctc_beta_grad_kernel(const float* __restrict__ log_probs,
 
 }  // namespace
 
-// alpha_out: (B, T, 2L+1) float32 for a later qea_ctc_beta_bwd, or null.
+// Threads a row in both kernels: the band min(2L+1, 2T+1) in whole warps
+// (ctc_cuda.band_threads says the same).
+static int band_threads(int T, int L) {
+  const int band = L < T ? 2 * L + 1 : 2 * T + 1;
+  return (band + 31) / 32 * 32;
+}
+
+// alpha_out: (B, T, band_threads(T, L)) float32 for a later
+// qea_ctc_beta_bwd, or null.
 extern "C" int qea_ctc_alpha_fwd(const float* log_probs, const int* labels,
                                  const int* lengths, float* nll,
                                  float* alpha_out, int T, int B, int V, int L,
                                  int pad_id, int blank, cudaStream_t stream) {
-  const int S = 2 * L + 1;
-  const int threads = (S + 31) / 32 * 32;
-  const size_t smem = 2 * (size_t)threads * sizeof(float);
+  const int threads = band_threads(T, L);
+  // the emission ring: chunks of at most kFwdChunk steps, two buffers of
+  // them beside alpha's two rows within kFwdSmem, or one buffer of all T
+  int chunk = (kFwdSmem / 4 - 2 * threads) / (2 * (threads + 1));
+  chunk = chunk < kFwdChunk ? chunk : kFwdChunk;
+  const int buffers = T <= chunk ? 1 : 2;
+  if (T <= chunk) chunk = T;
+  const size_t smem =
+      4 * ((size_t)2 * threads + (size_t)buffers * chunk * (threads + 1));
   ctc_alpha_kernel<<<B, threads, smem, stream>>>(log_probs, labels, lengths,
                                                  nll, alpha_out, T, B, V, L,
-                                                 pad_id, blank);
+                                                 chunk, pad_id, blank);
   return (int)cudaGetLastError();
 }
 
@@ -360,11 +486,9 @@ extern "C" int qea_ctc_beta_bwd(const float* log_probs, const int* labels,
                                 const float* nll, const float* grad_out,
                                 float* grad_lp, int T, int B, int V, int L,
                                 int pad_id, int blank, cudaStream_t stream) {
-  // the band: every extended position a row that the forward did not clamp
-  // can use, min(S, 2T+1), in whole warps; and the kernel's shared memory
-  // (ctc_cuda.grad_smem_bytes says the same)
-  const int band = L < T ? 2 * L + 1 : 2 * T + 1;
-  const int threads = (band + 31) / 32 * 32;
+  // the band, and the kernel's shared memory (ctc_cuda.grad_smem_bytes
+  // says the same)
+  const int threads = band_threads(T, L);
   const long long smem =
       4 * (2LL * threads * (T + 1) + (long long)T * V + T + threads / 2);
   if (smem > kMaxSmem) return (int)cudaErrorInvalidValue;

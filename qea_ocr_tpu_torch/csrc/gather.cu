@@ -16,14 +16,22 @@
 // 32x128, 400x512 documents) the forward moves about 4 MB and the backward
 // about 7 MB, so launch latency weighs on both.
 //
-// Forward design: one block per (document, strip). Threads walk the tile in
-// row-major order, so neighbouring threads write neighbouring columns
-// (coalesced 128-byte stores) and read neighbouring document pixels of the
-// same row. The box is read once per thread from global memory (a broadcast
-// through L1). Semantics are those of the XLA path in
-// qea_ocr_tpu/ops/text_stack.py `_extract_one`: rows/cols outside the box
-// are white, and source coordinates are clamped to the document's edge, so a
-// box that pokes out of the document repeats edge pixels.
+// Forward design: one warp per tile row. A block of 8 warps covers 8 rows
+// of one (document, strip) tile, in a grid of (D*S, ceil(h_out / 8)): 512
+// blocks at the slice's shapes, against the card's 132 SMs. Each warp reads
+// the box (broadcast loads of one 16-byte line) and takes row0 and col0
+// from it once; no cell pays a division or a modulo. A row outside
+// [y_min, y_max) is stored white without touching the document. Inside,
+// lane i owns 4 consecutive cells of the row, issues their (up to) 4 loads
+// from the clamped document row together, neighbouring lanes on
+// neighbouring columns, and stores them as one float4 where w_out % 4 == 0
+// (each tile row then starts 16-byte aligned), else one by one; it steps
+// 128 columns at a time where w_out > 128. Semantics are those of the XLA
+// path in qea_ocr_tpu/ops/text_stack.py `_extract_one`: rows/cols outside
+// the box are white, and source coordinates are clamped to the document's
+// edge, so a box that pokes out of the document repeats edge pixels. It is
+// a copy, with no arithmetic on the values, so it equals the plain version
+// bit for bit, at any h_out, w_out, H and W.
 //
 // Backward design: the gather formulation, tiled and culled. The TPU kernel
 // walked a document's strips serially so that overlapping boxes accumulate
@@ -75,29 +83,49 @@ __device__ __forceinline__ int floor_half(int a) {
   return a >= 0 ? a / 2 : -((1 - a) / 2);
 }
 
-__global__ void gather_fwd_kernel(const float* __restrict__ docs,
-                                  const int* __restrict__ bboxes,
-                                  float* __restrict__ out, int S, int H,
-                                  int W, int h_out, int w_out) {
+constexpr int kFwdRows = 8;  // tile rows a block: one a warp
+constexpr int kFwdThreads = 32 * kFwdRows;
+constexpr int kMaxGridY = 65535;
+
+// grid (D * S, min(ceil(h_out / kFwdRows), kMaxGridY)), kFwdThreads
+// threads; see the header.
+__global__ void __launch_bounds__(kFwdThreads)
+gather_fwd_kernel(const float* __restrict__ docs,
+                  const int* __restrict__ bboxes, float* __restrict__ out,
+                  int S, int H, int W, int h_out, int w_out) {
   const int ds = blockIdx.x;  // d * S + s
-  const int d = ds / S;
+  const int lane = threadIdx.x & 31;
   const int* box = bboxes + 4 * (size_t)ds;
   const int x_min = box[0], y_min = box[1], x_max = box[2], y_max = box[3];
   const int row0 = y_min - floor_half(h_out - (y_max - y_min));
   const int col0 = x_min - floor_half(w_out - (x_max - x_min));
-  const float* doc = docs + (size_t)d * H * W;
+  const float* doc = docs + (size_t)(ds / S) * H * W;
   float* tile = out + (size_t)ds * h_out * w_out;
-  const int n = h_out * w_out;
-  for (int idx = threadIdx.x; idx < n; idx += blockDim.x) {
-    const int r = row0 + idx / w_out;
-    const int c = col0 + idx % w_out;
-    float v = 1.0f;
-    if (r >= y_min && r < y_max && c >= x_min && c < x_max) {
-      const int rc = min(max(r, 0), H - 1);
-      const int cc = min(max(c, 0), W - 1);
-      v = doc[(size_t)rc * W + cc];
+  const bool vec = (w_out & 3) == 0;
+  for (int r = blockIdx.y * kFwdRows + (threadIdx.x >> 5); r < h_out;
+       r += gridDim.y * kFwdRows) {
+    const int y = row0 + r;
+    const bool row_in = y >= y_min && y < y_max;
+    const float* src = doc + (size_t)min(max(y, 0), H - 1) * W;
+    float* o = tile + (size_t)r * w_out;
+    for (int c = 4 * lane; c < w_out; c += 128) {
+      float v[4];
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        const int x = col0 + c + q;
+        v[q] = row_in && c + q < w_out && x >= x_min && x < x_max
+                   ? src[min(max(x, 0), W - 1)]
+                   : 1.0f;
+      }
+      if (vec) {
+        *reinterpret_cast<float4*>(o + c) = make_float4(v[0], v[1], v[2],
+                                                        v[3]);
+      } else {
+#pragma unroll
+        for (int q = 0; q < 4; ++q)
+          if (c + q < w_out) o[c + q] = v[q];
+      }
     }
-    tile[idx] = v;
   }
 }
 
@@ -224,8 +252,10 @@ gather_bwd_kernel(const float* __restrict__ grads,
 extern "C" int qea_gather_fwd(const float* docs, const int* bboxes,
                               float* out, int D, int S, int H, int W,
                               int h_out, int w_out, cudaStream_t stream) {
-  gather_fwd_kernel<<<D * S, 256, 0, stream>>>(docs, bboxes, out, S, H, W,
-                                               h_out, w_out);
+  const int row_blocks = (h_out + kFwdRows - 1) / kFwdRows;
+  const dim3 grid(D * S, row_blocks < kMaxGridY ? row_blocks : kMaxGridY);
+  gather_fwd_kernel<<<grid, kFwdThreads, 0, stream>>>(docs, bboxes, out, S,
+                                                      H, W, h_out, w_out);
   return (int)cudaGetLastError();
 }
 

@@ -32,13 +32,20 @@ launches = 0
 bwd_launches = 0
 
 
+def band_threads(T: int, L: int) -> int:
+    """Threads a row in both kernels (as their launchers compute it): the
+    band of extended positions that a row the forward does not clamp can
+    reach, min(2L+1, 2T+1), rounded up to whole warps. It is also the last
+    dimension of the forward's alpha, (B, T, band_threads(T, L))."""
+    return (min(2 * L + 1, 2 * T + 1) + 31) // 32 * 32
+
+
 def grad_smem_bytes(T: int, V: int, L: int) -> int:
     """Shared memory the backward kernel takes for a row (as its launcher
-    computes it). Its band holds every extended position a row that the
-    forward did not clamp can use, min(2L+1, 2T+1), rounded up to n threads
-    of a whole warp: c = beta + E (2, n), E and the terms (T, n) each, the
-    gradient (T, V), the blank's totals (T), the label's symbols (n / 2)."""
-    n = (min(2 * L + 1, 2 * T + 1) + 31) // 32 * 32
+    computes it), over n = band_threads(T, L) positions: c = beta + E
+    (2, n), E and the terms (T, n) each, the gradient (T, V), the blank's
+    totals (T), the label's symbols (n / 2)."""
+    n = band_threads(T, L)
     return 4 * (2 * n * (T + 1) + T * V + T + n // 2)
 
 
@@ -74,7 +81,8 @@ def _extend(log_probs: torch.Tensor, labels: torch.Tensor, pad_id: int,
 
 
 def _alpha_plain(log_probs, labels, lengths, pad_id, blank_id):
-    """-> nll (B,), alpha (T, B, S)."""
+    """-> nll (B,), alpha (T, B, S) over every extended position: the CPU
+    layout, which only `ctc_grad_plain` takes."""
     T, B, V = log_probs.shape
     L = labels.shape[1]
     dev = log_probs.device
@@ -209,9 +217,10 @@ def ctc_nll_cuda(log_probs: torch.Tensor, labels: torch.Tensor,
                  want_alpha: bool = False):
     """Launch the alpha kernel: log_probs (T, B, V) float32, labels (B, L)
     int32, lengths (B,) int32, all contiguous on one CUDA device. Returns
-    nll (B,), or with `want_alpha` the pair (nll, alpha (B, T, 2L+1)) that
-    `ctc_grad_cuda` takes (and then within the backward's limits). No
-    gradient: `ctc_nll` carries it."""
+    nll (B,), or with `want_alpha` the pair (nll, alpha) that `ctc_grad_cuda`
+    takes (and then within the backward's limits): alpha over the band only,
+    (B, T, band_threads(T, L)), -1e30 at positions s >= 2L+1. No gradient:
+    `ctc_nll` carries it."""
     global launches
     _check(log_probs, labels, lengths, grad=want_alpha)
     T, B, V = log_probs.shape
@@ -219,7 +228,7 @@ def ctc_nll_cuda(log_probs: torch.Tensor, labels: torch.Tensor,
     dev = log_probs.device
     lib = _lib()
     nll = torch.empty((B,), dtype=torch.float32, device=dev)
-    alpha = torch.empty((B, T, 2 * L + 1), dtype=torch.float32,
+    alpha = torch.empty((B, T, band_threads(T, L)), dtype=torch.float32,
                         device=dev) if want_alpha else None
     if B > 0:
         with torch.cuda.device(dev):
@@ -240,13 +249,14 @@ def ctc_grad_cuda(log_probs: torch.Tensor, labels: torch.Tensor,
                   nll: torch.Tensor, grad_out: torch.Tensor, pad_id: int,
                   blank_id: int = 0) -> torch.Tensor:
     """Launch the beta/gradient kernel on `ctc_nll_cuda(...,
-    want_alpha=True)`'s outputs: -> d log_probs (T, B, V) float32."""
+    want_alpha=True)`'s outputs, alpha (B, T, band_threads(T, L)) and nll:
+    -> d log_probs (T, B, V) float32."""
     global bwd_launches
     _check(log_probs, labels, lengths, grad=True)
     T, B, V = log_probs.shape
     L = labels.shape[1]
     dev = log_probs.device
-    for name, t, shape in (("alpha", alpha, (B, T, 2 * L + 1)),
+    for name, t, shape in (("alpha", alpha, (B, T, band_threads(T, L))),
                            ("nll", nll, (B,)), ("grad_out", grad_out, (B,))):
         if t.dtype != torch.float32 or tuple(t.shape) != shape \
                 or t.device != dev or not t.is_contiguous():

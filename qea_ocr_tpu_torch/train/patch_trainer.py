@@ -559,11 +559,11 @@ class TrainNNPrep:
             sel_strips = strips[self._dev(sel_rows)].float().cpu().numpy()
             ask = self.ocr.submit if cfg.async_ocr else self.ocr.query
             if cfg.inner_limit_skip:
-                with self.timer.time("ocr_submit"):
+                with self.timer.time("ocr_issue"):
                     work["clean"] = ask(sel_strips)
             for _ in range(n_jitter):
                 noisy = self._noise(sel_strips)
-                with self.timer.time("ocr_submit"):
+                with self.timer.time("ocr_issue"):
                     work["jitter"].append((noisy, ask(noisy)))
         return work
 

@@ -234,3 +234,50 @@ def test_cuda_backward_limits_raise_before_launch(T, L, V):
     with pytest.raises(ValueError, match="CUDA tensors"):
         ctc_cuda.ctc_nll_cuda(lp, lab, ln, V)
     assert (ctc_cuda.launches, ctc_cuda.bwd_launches) == counts
+
+
+@pytest.mark.parametrize("seed,T,L,V", [
+    (30, 31, 100, 95),    # the main path: band 63 of S = 201
+    (31, 38, 100, 95),    # band 77
+    (32, 7, 3, 6),        # S = 7 < 2T+1: the band is all of S
+    (33, 5, 12, 8),       # a band of 11 of S = 25
+])
+def test_alpha_band_holds_every_reachable_position(seed, T, L, V):
+    """The kernels work on the band s < min(2L+1, 2T+1) alone. Over the full
+    S, alpha at every s at or above it stays at or below the -5e29 cut-off
+    at every step. The recursion over the band alone (the labels cut to
+    min(L, T) symbols) gives the same alpha there and the same NLL bit for
+    bit: a row longer than the band scores 1e5 either way."""
+    rng = np.random.default_rng(seed)
+    x = rng.normal(size=(T, 6, V)).astype(np.float32) * 3
+    lp = torch.log_softmax(torch.from_numpy(x), dim=2)
+    labels = np.full((6, L), V, np.int32)
+    rows = [[],                                      # empty label
+            rng.integers(1, V, L),                   # full length
+            [1] * min(20, L),                        # 20 repeats
+            [2] * min(10, L),                        # 10 repeats
+            rng.integers(1, V, min(T - 1, L)),       # the band's last
+            1 + np.arange(min(15, L)) % (V - 1)]     # no repeat
+    lengths = np.array([len(r) for r in rows], np.int32)
+    for i, r in enumerate(rows):
+        labels[i, :len(r)] = r
+    labels, lengths = torch.from_numpy(labels), torch.from_numpy(lengths)
+
+    nll, alpha = ctc_cuda._alpha_plain(lp, labels, lengths, V, 0)
+    band = min(2 * L + 1, 2 * T + 1)
+    assert bool((alpha[:, :, band:] <= -5e29).all())
+    band_nll, band_alpha = ctc_cuda._alpha_plain(
+        lp, labels[:, :min(L, T)].contiguous(), lengths, V, 0)
+    assert band_alpha.shape[2] == band
+    assert torch.equal(band_alpha, alpha[:, :, :band])
+    assert torch.equal(band_nll, nll)
+    assert bool((nll[lengths > T] == 1e5).all())
+    n = ctc_cuda.band_threads(T, L)
+    assert n % 32 == 0 and band <= n < band + 32
+
+
+def test_band_threads():
+    assert ctc_cuda.band_threads(31, 100) == 64
+    assert ctc_cuda.band_threads(38, 100) == 96
+    assert ctc_cuda.band_threads(16, 3) == 32
+    assert ctc_cuda.band_threads(200, 511) == 416

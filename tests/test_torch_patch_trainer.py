@@ -84,6 +84,17 @@ def test_query_ledger_equals_the_budget(run_range_cer):
             assert np.isfinite(rec[key]), key
 
 
+def test_stage_keys_are_those_of_the_jax_trainer(run_range_cer):
+    """The stages this run went through, under the JAX trainer's names
+    (`tests/test_torch_stage_names.py` holds the names themselves)."""
+    _, _, _, tmp = run_range_cer
+    for rec in _records(tmp):
+        for stage in ("prep_extract", "ocr_issue", "ocr_wait", "phase_ab"):
+            for stat in ("mean_s", "total_s"):
+                assert np.isfinite(rec[f"time/{stage}_{stat}"]), stage
+        assert not [k for k in rec if k.startswith("time/ocr_submit")]
+
+
 def test_history_and_tables_written_for_the_right_strips(run_range_cer):
     trainer, _, _, tmp = run_range_cer
     ds = trainer.dataset
