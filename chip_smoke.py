@@ -94,6 +94,34 @@ Phases; any failure raises, so the exit code is non-zero:
                  checkpoint is reloaded with its optimizer state, and the
                  twin's eval forward is timed against the vanilla one
                  (vanilla, twin, twin, vanilla) and held to it.
+  7. pipeline  - the workflow around the trainer, through the CLIs at full
+                 width on the card. (a) The CRNN warmup
+                 (`cli/train_crnn.py`'s parser and config, with a metrics
+                 directory): 256 training and 64 validation crops, batches
+                 of 64, fake-OCR labels, 2 epochs: 10 CTC forward and 8
+                 backward launches, nothing else; a query ledger of 320
+                 crops an epoch; finite losses in its `metrics.jsonl`;
+                 checkpoints (state_dict and `.optim`), the last one
+                 reloaded and equal to the trainer's model. Then, on one
+                 training batch (B=64, T=31, L=100: the trained CRNN's
+                 log-probs and the OCR's labels), the CTC forward with alpha
+                 and the backward against their plain versions to a
+                 relative 1e-5 (floor 1), and a train step timed after
+                 warm-up. (b) `cli/eval_crnn.py` on that checkpoint: word
+                 crops (no kernel), then 8 documents in one batch (one
+                 gather forward). (c) `cli/eval_prep.py` with
+                 `QEA_CONV_IMPL=cmajor` on the trainer phase's last UNet
+                 checkpoint: 16 documents in 2 batches of 8 with the
+                 original strips' baseline: 16 conv and 4 gather forward
+                 launches; the cleaned and original accuracy and CER; an
+                 eval batch timed after warm-up. (d)
+                 `tools/cer_seed.seed_patch` on 4 documents: 4 gather
+                 forward launches (D=1, S=12); the strips the OCR read
+                 bitwise equal to the plain gather on the same documents
+                 and boxes; on the host, every CER equal to an edit
+                 distance recomputed here from the OCR's texts (a check of
+                 the CER bookkeeping, not of the gather); and whether the
+                 native host library loaded. Any other launch count fails.
 
 The line before last is the card's name and power limit, and before it a
 JSON line with each kernel's launches, error, times and bound; the last line
@@ -102,11 +130,13 @@ is {"ok": true, "device": {...}}.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import re
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -438,6 +468,47 @@ def _ctc_library_ms(torch, lp, labels, lengths, g, V):
     return fwd_ms, bwd_ms
 
 
+def hold_ctc(torch, lp, labels, lengths, g, pad_id, where: str):
+    """The CTC forward with alpha and the backward on its outputs against
+    `_alpha_plain` and `ctc_grad_plain` on the same tensors: NLL, alpha over
+    the band the kernel computes and d log-probs, each to KERNEL_REL_TOL
+    relative with a floor of 1, all finite. Returns both sides' outputs and
+    the largest errors."""
+    from qea_ocr_tpu_torch.ops.cuda import ctc_cuda
+
+    T, B = lp.shape[:2]
+    L = labels.shape[1]
+    nll, alpha = ctc_cuda.ctc_nll_cuda(lp, labels, lengths, pad_id,
+                                       want_alpha=True)
+    d_lp = ctc_cuda.ctc_grad_cuda(lp, labels, lengths, alpha, nll, g, pad_id)
+    p_nll, p_alpha = ctc_cuda._alpha_plain(lp, labels, lengths, pad_id, 0)
+    d_plain = ctc_cuda.ctc_grad_plain(lp, labels, lengths, p_alpha, p_nll, g,
+                                      pad_id)
+    torch.cuda.synchronize()
+    if not (torch.isfinite(nll).all() and torch.isfinite(d_lp).all()):
+        raise AssertionError(f"CTC kernels at {where}: non-finite values")
+    # the kernel's alpha covers the band, (B, T, n): held where it computes
+    # positions, s < min(n, S), which holds the band
+    n = ctc_cuda.band_threads(T, L)
+    if tuple(alpha.shape) != (B, T, n):
+        raise AssertionError(f"alpha {tuple(alpha.shape)}, want {(B, T, n)}")
+    cols = min(n, 2 * L + 1)
+
+    def rel(got, want):
+        return float(((got - want).abs() / want.abs().clamp(min=1)).max())
+    errs = dict(nll_rel=rel(nll, p_nll),
+                alpha_rel=rel(alpha[..., :cols],
+                              p_alpha.permute(1, 0, 2)[..., :cols]),
+                grad_rel=rel(d_lp, d_plain),
+                nll_abs=float((nll - p_nll).abs().max()),
+                grad_abs=float((d_lp - d_plain).abs().max()))
+    if max(errs["nll_rel"], errs["alpha_rel"], errs["grad_rel"]) \
+            > KERNEL_REL_TOL:
+        raise AssertionError(f"CTC kernels vs plain at {where}: {errs} > "
+                             f"{KERNEL_REL_TOL}")
+    return (nll, alpha, d_lp, p_nll, p_alpha, d_plain), errs
+
+
 def check_ctc(torch, dev, card):
     """Alpha and beta/gradient kernels against their plain versions at
     B = 128 (= D*S, timed; its records are returned), 1536 (timed), 1 and,
@@ -470,42 +541,19 @@ def check_ctc(torch, dev, card):
         worst_fwd = max(worst_fwd, err)
 
         # backward: the kernel's own alpha in, d log_probs out
-        nll, alpha = ctc_cuda.ctc_nll_cuda(lp, labels, lengths, V,
-                                           want_alpha=True)
+        (nll, alpha, d_lp, p_nll, p_alpha, d_plain), errs = hold_ctc(
+            torch, lp, labels, lengths, g, V, f"B={B} T={T}")
         if not torch.equal(nll, got):
             raise AssertionError("the alpha output changed the kernel's nll")
-        d_lp = ctc_cuda.ctc_grad_cuda(lp, labels, lengths, alpha, nll, g, V)
         again = ctc_cuda.ctc_grad_cuda(lp, labels, lengths, alpha, nll, g, V)
-        p_nll, p_alpha = ctc_cuda._alpha_plain(lp, labels, lengths, V, 0)
-        d_plain = ctc_cuda.ctc_grad_plain(lp, labels, lengths, p_alpha, p_nll,
-                                          g, V)
         torch.cuda.synchronize()
-        if not torch.isfinite(d_lp).all():
-            raise AssertionError("CTC backward kernel returned non-finite "
-                                 "values")
         if float(d_lp[:, infeasible].abs().sum()) != 0.0 \
                 or float(d_plain[:, infeasible].abs().sum()) != 0.0:
             raise AssertionError("gradient of an infeasible row is not 0")
-        # the kernel's alpha covers the band, (B, T, n): held where it
-        # computes positions, s < min(n, S), which holds the band
-        n = ctc_cuda.band_threads(T, L)
-        if tuple(alpha.shape) != (B, T, n):
-            raise AssertionError(f"alpha {tuple(alpha.shape)}, want "
-                                 f"{(B, T, n)}")
-        cols = min(n, 2 * L + 1)
-        a_rel = float(((alpha[..., :cols] - p_alpha.permute(1, 0, 2)[
-            ..., :cols]).abs() / p_alpha.permute(1, 0, 2)[..., :cols].abs()
-            .clamp(min=1)).max())
-        berr = float((d_lp - d_plain).abs().max())
-        brel = float(((d_lp - d_plain).abs()
-                      / d_plain.abs().clamp(min=1)).max())
         if not torch.equal(d_lp, again):
             raise AssertionError(f"CTC backward kernel at B={B} T={T} is not "
                                  "repeatable")
-        if brel > KERNEL_REL_TOL or a_rel > KERNEL_REL_TOL:
-            raise AssertionError(f"CTC backward kernel vs plain at B={B} "
-                                 f"T={T}: relative err {brel} (alpha "
-                                 f"{a_rel}) > {KERNEL_REL_TOL}")
+        berr, brel = errs["grad_abs"], errs["grad_rel"]
         worst_bwd = max(worst_bwd, berr)
         what = (f"ctc T={T} V={V} L={L} B={B}: max abs err {err:.3g}, max "
                 f"rel err {rel:.3g}; backward max abs err {berr:.3g}, max rel "
@@ -1249,12 +1297,27 @@ def check_train_reference(torch, dev, cm):
                              "the CPU's")
 
 
-def run_trainer(torch, dev, card):
+@contextlib.contextmanager
+def conv_impl_cmajor():
+    """`QEA_CONV_IMPL=cmajor` inside the block (UNets built there send
+    their no-grad forwards through the conv kernel), as before after it."""
+    before = os.environ.get("QEA_CONV_IMPL")
+    os.environ["QEA_CONV_IMPL"] = "cmajor"
+    try:
+        yield
+    finally:
+        if before is None:
+            del os.environ["QEA_CONV_IMPL"]
+        else:
+            os.environ["QEA_CONV_IMPL"] = before
+
+
+def run_trainer(torch, dev, card, exp):
     """The patch trainer through its CLI at full width on the card, the
-    no-grad twin on the channel-major conv kernel. Returns the kernel launch
-    counts of this phase and the twin-vs-vanilla reading."""
+    no-grad twin on the channel-major conv kernel, writing under `exp`.
+    Returns the kernel launch counts of this phase, the twin-vs-vanilla
+    reading and the last epoch's UNet checkpoint."""
     import glob
-    import tempfile
 
     from qea_ocr_tpu_torch.cli import patch_cli
     from qea_ocr_tpu_torch.data import PatchDocuments, collate_docs
@@ -1263,88 +1326,80 @@ def run_trainer(torch, dev, card):
     from qea_ocr_tpu_torch.utils.io import load_checkpoint
 
     n_train, n_val, strips_per_doc, prop = 16, 8, 12, 0.5
-    with tempfile.TemporaryDirectory() as exp:
-        argv = ["--device", "cuda", "--ocr", "Fake", "--dataset", "synthetic",
-                "--epoch", str(TRAINER_EPOCHS), "--batch_docs", str(D),
-                "--max_strips", str(S), "--synthetic_train_docs",
-                str(n_train), "--synthetic_val_docs", str(n_val),
-                "--synthetic_strips_per_doc", str(strips_per_doc),
-                "--doc_size", *map(str, DOC_SIZE),
-                "--minibatch_subset", "rangeCER",
-                "--minibatch_subset_prop", str(prop), "--window_size", "3",
-                "--inner_limit", "2", "--inner_limit_skip",
-                "--unet_features", str(UNET_FEATURES),
-                "--lstm_hidden", str(LSTM_HIDDEN), "--exp_base_path", exp]
-        before = os.environ.get("QEA_CONV_IMPL")
-        os.environ["QEA_CONV_IMPL"] = "cmajor"
-        _reset_counts()
-        try:
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            patch_cli.main(argv)
-            torch.cuda.synchronize()
-            seconds = time.perf_counter() - t0
-        finally:
-            if before is None:
-                del os.environ["QEA_CONV_IMPL"]
-            else:
-                os.environ["QEA_CONV_IMPL"] = before
-        counts = _counts()
-        want = {k: TRAINER_EPOCHS * (
-            TRAINER_STEPS * LAUNCHES_TRAINER_STEP[k]
-            + TRAINER_VAL_BATCHES * LAUNCHES_VAL_BATCH[k]) for k in counts}
-        log(f"[trainer] kernel launches in this phase: {json.dumps(counts)}")
-        if counts != want:
-            raise AssertionError(f"launches in the trainer phase {counts}, "
-                                 f"expected {want}")
+    argv = ["--device", "cuda", "--ocr", "Fake", "--dataset", "synthetic",
+            "--epoch", str(TRAINER_EPOCHS), "--batch_docs", str(D),
+            "--max_strips", str(S), "--synthetic_train_docs",
+            str(n_train), "--synthetic_val_docs", str(n_val),
+            "--synthetic_strips_per_doc", str(strips_per_doc),
+            "--doc_size", *map(str, DOC_SIZE),
+            "--minibatch_subset", "rangeCER",
+            "--minibatch_subset_prop", str(prop), "--window_size", "3",
+            "--inner_limit", "2", "--inner_limit_skip",
+            "--unet_features", str(UNET_FEATURES),
+            "--lstm_hidden", str(LSTM_HIDDEN), "--exp_base_path", exp]
+    _reset_counts()
+    with conv_impl_cmajor():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        patch_cli.main(argv)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+    counts = _counts()
+    want = {k: TRAINER_EPOCHS * (
+        TRAINER_STEPS * LAUNCHES_TRAINER_STEP[k]
+        + TRAINER_VAL_BATCHES * LAUNCHES_VAL_BATCH[k]) for k in counts}
+    log(f"[trainer] kernel launches in this phase: {json.dumps(counts)}")
+    if counts != want:
+        raise AssertionError(f"launches in the trainer phase {counts}, "
+                             f"expected {want}")
 
-        with open(os.path.join(exp, "metrics.jsonl")) as f:
-            recs = [json.loads(line) for line in f]
-        # the query ledger: per document ceil(12 * (1 - 0.5)) = 6 strips,
-        # queried once clean and once jittered; validation reads every strip
-        train_calls = n_train * int(np.ceil(strips_per_doc * (1 - prop))) * 2
-        val_calls = n_val * strips_per_doc
-        if len(recs) != TRAINER_EPOCHS:
-            raise AssertionError(f"{len(recs)} epochs logged")
-        for i, rec in enumerate(recs):
-            if rec["Black-Box Calls"] != train_calls \
-                    or rec["Train + Val BB Calls"] != train_calls + val_calls \
-                    or rec["Total Train + Val BB Calls"] != \
-                    (i + 1) * (train_calls + val_calls):
-                raise AssertionError(f"query ledger of epoch {i}: {rec}")
-            if not all(np.isfinite(rec[k]) for k in (
-                    "train_loss", "val_loss", "CRNN_loss", "CRNN_CER")):
-                raise AssertionError(f"non-finite losses in epoch {i}: {rec}")
-            log(f"[trainer] epoch {i}: {rec['time/epoch_s']:.2f} s (host "
-                f"clock: {TRAINER_STEPS} steps of {D} documents, side JSONs, "
-                f"validation of {n_val}); train_loss "
-                f"{rec['train_loss']:.4f}, val_loss {rec['val_loss']:.4f}, "
-                f"CRNN_loss {rec['CRNN_loss']:.4f}, OCR queries "
-                f"{rec['Black-Box Calls']} + {val_calls} ({card})")
-        # the trainer's own stage clock, last epoch alone (the totals are
-        # cumulative): host time, each stage ending in a host read or a copy
-        stages = {k[len("time/"):-len("_total_s")]:
-                  recs[-1][k] - recs[-2].get(k, 0.0)
-                  for k in recs[-1] if k.endswith("_total_s")}
-        log(f"[trainer] patch_cli.main: {TRAINER_EPOCHS} epochs with set-up "
-            f"and checkpoints in {seconds:.2f} s; stages of the last epoch "
-            f"(host clock, ms, {TRAINER_STEPS} steps): " + ", ".join(
-                f"{k} {1e3 * v:.1f}" for k, v in sorted(stages.items())))
-        for name in ("tracked_labels/tracked_labels_current.json",
-                     "selected_samples/selected_samples_current.json",
-                     "cers/all_cers.json", "img_out/out_1.png",
-                     "ckpts/CRNN_model_1", "params.txt"):
-            if not os.path.exists(os.path.join(exp, name)):
-                raise AssertionError(f"the trainer did not write {name}")
+    with open(os.path.join(exp, "metrics.jsonl")) as f:
+        recs = [json.loads(line) for line in f]
+    # the query ledger: per document ceil(12 * (1 - 0.5)) = 6 strips,
+    # queried once clean and once jittered; validation reads every strip
+    train_calls = n_train * int(np.ceil(strips_per_doc * (1 - prop))) * 2
+    val_calls = n_val * strips_per_doc
+    if len(recs) != TRAINER_EPOCHS:
+        raise AssertionError(f"{len(recs)} epochs logged")
+    for i, rec in enumerate(recs):
+        if rec["Black-Box Calls"] != train_calls \
+                or rec["Train + Val BB Calls"] != train_calls + val_calls \
+                or rec["Total Train + Val BB Calls"] != \
+                (i + 1) * (train_calls + val_calls):
+            raise AssertionError(f"query ledger of epoch {i}: {rec}")
+        if not all(np.isfinite(rec[k]) for k in (
+                "train_loss", "val_loss", "CRNN_loss", "CRNN_CER")):
+            raise AssertionError(f"non-finite losses in epoch {i}: {rec}")
+        log(f"[trainer] epoch {i}: {rec['time/epoch_s']:.2f} s (host "
+            f"clock: {TRAINER_STEPS} steps of {D} documents, side JSONs, "
+            f"validation of {n_val}); train_loss "
+            f"{rec['train_loss']:.4f}, val_loss {rec['val_loss']:.4f}, "
+            f"CRNN_loss {rec['CRNN_loss']:.4f}, OCR queries "
+            f"{rec['Black-Box Calls']} + {val_calls} ({card})")
+    # the trainer's own stage clock, last epoch alone (the totals are
+    # cumulative): host time, each stage ending in a host read or a copy
+    stages = {k[len("time/"):-len("_total_s")]:
+              recs[-1][k] - recs[-2].get(k, 0.0)
+              for k in recs[-1] if k.endswith("_total_s")}
+    log(f"[trainer] patch_cli.main: {TRAINER_EPOCHS} epochs with set-up "
+        f"and checkpoints in {seconds:.2f} s; stages of the last epoch "
+        f"(host clock, ms, {TRAINER_STEPS} steps): " + ", ".join(
+            f"{k} {1e3 * v:.1f}" for k, v in sorted(stages.items())))
+    for name in ("tracked_labels/tracked_labels_current.json",
+                 "selected_samples/selected_samples_current.json",
+                 "cers/all_cers.json", "img_out/out_1.png",
+                 "ckpts/CRNN_model_1", "params.txt"):
+        if not os.path.exists(os.path.join(exp, name)):
+            raise AssertionError(f"the trainer did not write {name}")
 
-        # a checkpoint reloads, optimizer state included, and the twin over
-        # it agrees with the vanilla forward
-        ckpt = [p for p in glob.glob(os.path.join(
-            exp, "ckpts", f"Prep_model_{TRAINER_EPOCHS - 1}_*"))
-            if not p.endswith(".optim")][0]
-        vanilla = UNet(init_features=UNET_FEATURES, conv_impl="xla").to(dev)
-        opt = adam_l2(vanilla.parameters(), 5e-5, 5e-4)
-        load_checkpoint(ckpt, vanilla, opt)
+    # a checkpoint reloads, optimizer state included, and the twin over
+    # it agrees with the vanilla forward
+    ckpt = [p for p in glob.glob(os.path.join(
+        exp, "ckpts", f"Prep_model_{TRAINER_EPOCHS - 1}_*"))
+        if not p.endswith(".optim")][0]
+    vanilla = UNet(init_features=UNET_FEATURES, conv_impl="xla").to(dev)
+    opt = adam_l2(vanilla.parameters(), 5e-5, 5e-4)
+    load_checkpoint(ckpt, vanilla, opt)
     if not opt.state_dict()["state"]:
         raise AssertionError("the checkpoint's optimizer state is empty")
     vanilla.eval()
@@ -1377,7 +1432,267 @@ def run_trainer(torch, dev, card):
     return counts, dict(vanilla_ms=vanilla_ms, twin_ms=twin_ms,
                         max_abs_diff=diff, seconds=seconds,
                         epoch_s=[r["time/epoch_s"] for r in recs],
-                        last_epoch_stage_s=stages)
+                        last_epoch_stage_s=stages), ckpt
+
+
+def _expect(phase: str, want: dict) -> dict:
+    """The launch counts since the last reset, which must equal `want`
+    (kernels not named there: 0). Resets the counts."""
+    counts = _counts()
+    full = {k: want.get(k, 0) for k in counts}
+    log(f"[pipeline] {phase}: kernel launches {json.dumps(counts)}")
+    if counts != full:
+        raise AssertionError(f"launches in {phase}: {counts}, expected "
+                             f"{full}")
+    _reset_counts()
+    return counts
+
+
+def _host_ms(torch, fn, iters: int = 5) -> float:
+    """Median host-clock time (ms) of `fn` ending in a synchronise."""
+    times = []
+    for _ in range(iters):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append(1e3 * (time.perf_counter() - t0))
+    return float(np.median(times))
+
+
+def _edit_distance(a: str, b: str) -> int:
+    """Levenshtein distance of two strings, one DP row at a time."""
+    row = list(range(len(b) + 1))
+    for i, ca in enumerate(a, 1):
+        prev, row[0] = row[0], i
+        for j, cb in enumerate(b, 1):
+            prev, row[j] = row[j], min(row[j] + 1, row[j - 1] + 1,
+                                       prev + (ca != cb))
+    return row[-1]
+
+
+def run_pipeline(torch, dev, card, work, prep_ckpt):
+    """The user's workflow around the trainer, through the CLIs at full
+    width on the card: the CRNN warmup, the CRNN evaluator on its
+    checkpoint, the UNet evaluator on the trainer phase's checkpoint
+    `prep_ckpt` with the channel-major conv, and the CER seed of 4
+    documents, with the CTC and gather kernels held against their plain
+    versions at the shapes the warmup and the CER seed give them. Returns
+    the kernel launch counts of the whole phase and its readings."""
+    import dataclasses
+    import glob
+
+    from qea_ocr_tpu_torch.cli import eval_crnn, eval_prep, train_crnn
+    from qea_ocr_tpu_torch.eval.eval_prep import EvalPrep
+    from qea_ocr_tpu_torch.data import (
+        PatchDocuments, collate_docs, collate_words)
+    from qea_ocr_tpu_torch.models.crnn import CRNN
+    from qea_ocr_tpu_torch.ocr.base import get_ocr_helper
+    from qea_ocr_tpu_torch.ocr.engine import OcrQueryEngine
+    from qea_ocr_tpu_torch.ops.cuda import gather_cuda
+    from qea_ocr_tpu_torch.tools.cer_seed import seed_patch
+    from qea_ocr_tpu_torch.train.crnn_trainer import TrainCRNN
+    from qea_ocr_tpu_torch.utils import native
+    from qea_ocr_tpu_torch.utils.charmap import CharMap
+    from qea_ocr_tpu_torch.utils.io import load_checkpoint
+
+    total = {}
+    readings = {}
+
+    def add(counts):
+        for k, v in counts.items():
+            total[k] = total.get(k, 0) + v
+
+    # (a) the warmup: 256 training crops in 4 steps of 64 and 64 validation
+    # crops in one batch, 2 epochs; a step is one CTC forward (with alpha)
+    # and one backward, a validation batch one forward. Built as the CLI's
+    # `main` builds it, with a metrics directory (the CLI has no flag for
+    # one, as the JAX package's has none)
+    crnn_dir = os.path.join(work, "crnn")
+    n_train, n_val, batch, epochs = 256, 64, 64, 2
+    steps, val_batches = n_train // batch, -(-n_val // batch)
+    cfg = dataclasses.replace(train_crnn.config_from_args(
+        train_crnn.build_parser().parse_args([
+            "--device", "cuda", "--dataset", "synthetic", "--ocr", "Fake",
+            "--lstm_hidden", str(LSTM_HIDDEN), "--batch_size", str(batch),
+            "--synthetic_train_size", str(n_train),
+            "--synthetic_val_size", str(n_val), "--epoch", str(epochs),
+            "--std", "3", "--crnn_model_path",
+            os.path.join(crnn_dir, "model")])), log_dir=crnn_dir)
+    _reset_counts()
+    t0 = time.perf_counter()
+    trainer = TrainCRNN(cfg)
+    trainer.train()
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    add(_expect("warmup", {"ctc_fwd": epochs * (steps + val_batches),
+                           "ctc_bwd": epochs * steps}))
+    if trainer.ocr.total_calls != epochs * (n_train + n_val) \
+            or trainer.ocr.count_calls != trainer.ocr.total_calls:
+        raise AssertionError(f"warmup query ledger {trainer.ocr.total_calls},"
+                             f" expected {epochs * (n_train + n_val)}")
+    with open(os.path.join(crnn_dir, "metrics.jsonl")) as f:
+        records = [json.loads(line) for line in f]
+    if len(records) != epochs or not all(
+            np.isfinite(r[k]) for r in records
+            for k in ("train_loss", "val_loss", "CRNN_CER")):
+        raise AssertionError(f"warmup epochs: {records}")
+    for r in records:
+        log(f"[pipeline] warmup epoch {r['Epoch']}: train_loss "
+            f"{r['train_loss']:.4f}, val_loss {r['val_loss']:.4f}, "
+            f"CRNN-vs-OCR accuracy {r['CRNN_accuracy']:.4f}, CER "
+            f"{r['CRNN_CER']:.4f}, queries {r['Total Black-Box Calls']}")
+    ckpts = [p for p in glob.glob(os.path.join(crnn_dir,
+                                               f"model_{epochs - 1}_*"))
+             if not p.endswith(".optim")]
+    if len(ckpts) != 1 or not os.path.exists(ckpts[0] + ".optim"):
+        raise AssertionError(f"warmup checkpoints: {os.listdir(crnn_dir)}")
+    reloaded = CRNN(trainer.charmap.vocab_size,
+                    lstm_hidden=LSTM_HIDDEN).to(dev)
+    load_checkpoint(ckpts[0], reloaded)
+    for k, v in trainer.model.state_dict().items():
+        if not torch.equal(reloaded.state_dict()[k], v):
+            raise AssertionError(f"the warmup checkpoint differs at {k}")
+    del reloaded
+    # one training batch as a step gives it to the CTC kernels: the trained
+    # CRNN's train-mode log-probs and the OCR's labels of the noisy crops,
+    # the upstream gradient that of the length-normalised batch mean
+    cm = trainer.charmap
+    words = collate_words([trainer.train_ds[i] for i in range(batch)], cm)
+    noisy = trainer._noise(words.images)
+    res = trainer.ocr.query(noisy)
+    args = [torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+            for a in (noisy, res.labels, res.lengths)]
+    trainer.model.train()
+    with torch.no_grad():
+        lp = trainer.model(args[0]).float().contiguous()
+    g = 1.0 / (batch * args[2].float().clamp(min=1.0))
+    _, ctc_errs = hold_ctc(torch, lp, args[1].int().contiguous(),
+                           args[2].int().contiguous(), g, cm.pad_id,
+                           "the warmup's batch")
+    log(f"[pipeline] warmup batch: CTC kernels vs plain at T={lp.shape[0]} "
+        f"B={lp.shape[1]} V={lp.shape[2]} L={args[1].shape[1]} (the CRNN's "
+        f"log-probs, the OCR's labels): {json.dumps(ctc_errs)}")
+    # a warmup step alone after warm-up: the train step and its host read
+    # of the loss, without the OCR
+    step_ms = _host_ms(torch, lambda: float(trainer._train_step(*args)))
+    _reset_counts()
+    log(f"[pipeline] warmup: TrainCRNN.train {seconds:.2f} s for {epochs} "
+        f"epochs of {steps} steps of {batch} crops with set-up, OCR and "
+        f"checkpoints; one train step with its loss read {step_ms:.2f} ms "
+        f"(host clock, median of 5, after warm-up; {card})")
+    readings.update(warmup_s=seconds, warmup_step_ms=step_ms,
+                    warmup_acc=records[-1]["CRNN_accuracy"],
+                    warmup_ctc=ctc_errs)
+    del trainer
+
+    # (b) the CRNN evaluator on that checkpoint: word crops (decode only, no
+    # kernel), then 8 documents in one batch (one strip gather)
+    crnn_args = ["--device", "cuda", "--crnn_path", crnn_dir,
+                 "--crnn_model_name", os.path.basename(ckpts[0]),
+                 "--lstm_hidden", str(LSTM_HIDDEN), "--ocr", "Fake"]
+    acc, cer = eval_crnn.main(crnn_args + ["--dataset", "synthetic_area"])
+    add(_expect("eval_crnn synthetic_area", {}))
+    acc_p, cer_p = eval_crnn.main(crnn_args + [
+        "--dataset", "synthetic_patch", "--synthetic_docs", "8",
+        "--batch_docs", "8", "--max_strips", str(S),
+        "--doc_size", *map(str, DOC_SIZE)])
+    add(_expect("eval_crnn synthetic_patch", {"gather_fwd": 1}))
+    for v in (acc, cer, acc_p, cer_p):
+        if not np.isfinite(v):
+            raise AssertionError(f"eval_crnn: {acc, cer, acc_p, cer_p}")
+    log(f"[pipeline] eval_crnn: word crops accuracy {acc:.4f} CER "
+        f"{cer:.4f}; document strips accuracy {acc_p:.4f} CER {cer_p:.4f}")
+
+    # (c) the UNet evaluator on the trainer phase's checkpoint, on the
+    # channel-major conv: 16 documents in 2 batches of 8, each one UNet
+    # forward (8 conv launches) and two gathers (original and cleaned)
+    prep_args = ["--device", "cuda", "--prep_path", prep_ckpt,
+                 "--dataset", "synthetic_patch", "--ocr", "Fake",
+                 "--synthetic_docs", "16", "--batch_docs", str(D),
+                 "--max_strips", str(S), "--synthetic_strips_per_doc", "12",
+                 "--doc_size", *map(str, DOC_SIZE),
+                 "--unet_features", str(UNET_FEATURES), "--show_orig"]
+    with conv_impl_cmajor():
+        (acc, cer), (o_acc, o_cer) = eval_prep.main(prep_args)
+        add(_expect("eval_prep", {"conv": 2 * CONVS_PER_FORWARD,
+                                  "gather_fwd": 2 * 2}))
+        ev = EvalPrep(eval_prep.config_from_args(
+            eval_prep.build_parser().parse_args(prep_args)))
+    if not all(0.0 <= v <= 1.0 + 1e-6 for v in (acc, o_acc)) \
+            or not all(np.isfinite(v) for v in (cer, o_cer)):
+        raise AssertionError(f"eval_prep: {acc, cer, o_acc, o_cer}")
+    log(f"[pipeline] eval_prep (conv kernel): cleaned strips accuracy "
+        f"{acc:.4f} CER {cer:.4f}; original strips accuracy {o_acc:.4f} CER "
+        f"{o_cer:.4f} (the trainer phase's 2-epoch UNet, random CRNN)")
+    # an eval batch after warm-up: the whole evaluation of 2 batches (the
+    # UNet, the gathers and the OCR of 2 x 96 strips x 2), and the UNet
+    # forward with the cleaned strips' gather alone
+    batch_ms = _host_ms(torch, ev.eval, iters=3) / 2
+    docs = collate_docs(ev.dataset.samples[:D])
+    images, bboxes = (torch.from_numpy(docs.images).to(dev),
+                      torch.from_numpy(docs.bboxes).to(dev))
+    forward_ms = _host_ms(torch, lambda: ev._prep_strips(images, bboxes))
+    _reset_counts()
+    log(f"[pipeline] eval_prep: one batch of {D} documents {batch_ms:.2f} ms "
+        f"with its OCR, the UNet forward and strip gather alone "
+        f"{forward_ms:.2f} ms (host clock, medians, after warm-up; {card})")
+    readings.update(eval_batch_ms=batch_ms, eval_forward_ms=forward_ms,
+                    cleaned=(acc, cer), original=(o_acc, o_cer))
+
+    # (d) the CER seed of 4 documents, one gather each (D=1). The OCR's
+    # inputs, the strips `get_text_stack` cut on the card, are recorded and
+    # held bitwise against the plain gather on the same documents and boxes
+    cm = CharMap.default()
+    ds = PatchDocuments.synthetic(4, seed=7, n_strips=12, max_strips=S,
+                                  doc_size=DOC_SIZE)
+    engine = OcrQueryEngine(get_ocr_helper("Fake"), cm)
+    strips, texts = [], []
+    query = engine.query
+
+    def recorded(images):
+        strips.append(np.array(images))
+        res = query(images)
+        texts.append(res.texts)
+        return res
+    engine.query = recorded
+    cers = seed_patch(ds, engine, cm, device="cuda")
+    add(_expect("cer_seed", {"gather_fwd": len(ds)}))
+    if len(strips) != len(ds):
+        raise AssertionError(f"cer_seed queried the OCR {len(strips)} times")
+    for sample, got in zip(ds.samples, strips):
+        rows = np.nonzero(sample.strip_mask)[0]
+        doc = torch.from_numpy(sample.image).to(dev)
+        want = gather_cuda.text_stack_plain(
+            doc.reshape(1, 1, *doc.shape[-2:]),
+            torch.from_numpy(sample.bboxes[rows]).to(dev)[None])[0, :, None]
+        if got.shape != tuple(want.shape) \
+                or not np.array_equal(got, want.cpu().numpy()):
+            raise AssertionError(
+                f"cer_seed strips {got.shape} differ from the plain gather "
+                f"{tuple(want.shape)}: max abs err "
+                f"{np.abs(got - want.cpu().numpy()).max()}")
+    # on the host: each CER against an edit distance of the OCR's text and
+    # the ground truth recomputed here (seed_patch's bookkeeping, not the
+    # gather, which the check above holds)
+    for sample, read in zip(ds.samples, texts):
+        rows = np.nonzero(sample.strip_mask)[0]
+        gts = cm.decode(sample.gt_labels[rows], sample.gt_lengths[rows])
+        for r, gt, got in zip(rows, gts, read):
+            gt_c = cm.clean(gt)
+            want = _edit_distance(cm.clean(got), gt_c) / max(1, len(gt_c))
+            if abs(cers[sample.strip_names[r]] - want) > 1e-12:
+                raise AssertionError(f"CER seed of {sample.strip_names[r]}: "
+                                     f"{cers[sample.strip_names[r]]} vs "
+                                     f"{want}")
+    if len(cers) != sum(int(s.strip_mask.sum()) for s in ds.samples):
+        raise AssertionError(f"{len(cers)} CER seeds")
+    log(f"[pipeline] cer_seed: {len(cers)} strips of {len(ds)} documents, "
+        f"{strips[0].shape} a document, bitwise equal to the plain gather; "
+        f"mean CER {np.mean(list(cers.values())):.4f}; native host library "
+        f"loaded: {native.have_native()}")
+    readings["have_native"] = native.have_native()
+    return total, readings
 
 
 def main() -> None:
@@ -1424,7 +1739,16 @@ def main() -> None:
 
     counts = run_train(torch, dev, card, cm)
     check_train_reference(torch, dev, cm)
-    trainer_counts, twin = run_trainer(torch, dev, card)
+    with tempfile.TemporaryDirectory() as work:
+        trainer_counts, twin, prep_ckpt = run_trainer(
+            torch, dev, card, os.path.join(work, "trainer"))
+        pipeline_counts, pipeline = run_pipeline(torch, dev, card, work,
+                                                 prep_ckpt)
+    # the warmup's batch is one more shape the CTC kernels were held at
+    ctc_fwd["max_abs_err"] = max(ctc_fwd["max_abs_err"],
+                                 pipeline["warmup_ctc"]["nll_abs"])
+    ctc_bwd["max_abs_err"] = max(ctc_bwd["max_abs_err"],
+                                 pipeline["warmup_ctc"]["grad_abs"])
 
     csrc = "qea_ocr_tpu_torch/csrc/"
     pallas = "qea_ocr_tpu/ops/pallas/"
@@ -1438,7 +1762,8 @@ def main() -> None:
          "launches": (trainer_counts if key == "conv" else counts)[key],
          "launches_inference": infer_counts[key],
          "launches_train": counts[key],
-         "launches_trainer": trainer_counts[key], **record}
+         "launches_trainer": trainer_counts[key],
+         "launches_pipeline": pipeline_counts[key], **record}
         for key, name, source, replaces, record in (
             ("gather_fwd", "gather_fwd", "gather.cu", "gather_pallas.py:113",
              gather_fwd),
@@ -1454,6 +1779,7 @@ def main() -> None:
         if k["launches"] < 1:
             raise AssertionError(f"{k['name']} never launched on its path")
     log(f"[trainer] twin vs vanilla: {json.dumps(twin)}")
+    log(f"[pipeline] readings: {json.dumps(pipeline)}")
     print(json.dumps({"kernels": kernels}))
     print(gpu_line())
     print(json.dumps({"ok": True, "device": {

@@ -1,12 +1,13 @@
 """Host batching of the port's data path, and the host-to-device step.
 
-`DocBatch`, `collate_docs`, `pad_docbatch`, `blank_docbatch`,
-`batch_iterator` (thread-pool sample fetch, background prefetch) and
-`default_num_workers` are the port's own copy of the document half of
-`qea_ocr_tpu/data/pipeline.py` (numpy only): documents, boxes and labels are
-assembled on the host into fixed-shape arrays, all raggedness resolved at
-dataset construction. The word batches and the multi-host sharding wait for
-their slices. `doc_batch_to` moves a collated `DocBatch` onto a torch
+The word batches (`WordBatch`, `collate_words`, `pad_wordbatch`,
+`blank_wordbatch`), the document batches (`DocBatch`, `collate_docs`,
+`pad_docbatch`, `blank_docbatch`), `batch_iterator` (thread-pool sample
+fetch, background prefetch) and `default_num_workers` are the port's own
+copy of `qea_ocr_tpu/data/pipeline.py` (numpy only): crops, documents, boxes
+and labels are assembled on the host into fixed-shape arrays, all raggedness
+resolved at dataset construction. The multi-host sharding waits for its
+slice. `doc_batch_to` and `word_batch_to` move a collated batch onto a torch
 device.
 """
 
@@ -22,7 +23,18 @@ from typing import Iterator, List, Optional, Sequence
 import numpy as np
 import torch
 
-from qea_ocr_tpu_torch.data.datasets import DocSample
+from qea_ocr_tpu_torch.data.datasets import DocSample, WordSample
+from qea_ocr_tpu_torch.utils.charmap import CharMap
+
+
+@dataclasses.dataclass
+class WordBatch:
+    images: np.ndarray       # (B, 1, H, W) float32
+    labels: np.ndarray       # (B, L) int32
+    lengths: np.ndarray      # (B,) int32
+    strip_ids: np.ndarray    # (B,) int32
+    texts: List[str]
+    names: List[str]
 
 
 @dataclasses.dataclass
@@ -37,6 +49,15 @@ class DocBatch:
     doc_names: List[str]
 
 
+def collate_words(samples: Sequence[WordSample], charmap: CharMap) -> WordBatch:
+    imgs = np.stack([s.image for s in samples])[:, None]
+    texts = [charmap.clean(s.label) for s in samples]
+    labels, lengths = charmap.encode(texts)
+    ids = np.asarray([s.strip_id for s in samples], np.int32)
+    return WordBatch(imgs.astype(np.float32), labels, lengths, ids,
+                     texts, [s.name for s in samples])
+
+
 def collate_docs(samples: Sequence[DocSample]) -> DocBatch:
     return DocBatch(
         images=np.stack([s.image for s in samples])[:, None].astype(np.float32),
@@ -47,6 +68,31 @@ def collate_docs(samples: Sequence[DocSample]) -> DocBatch:
         strip_ids=np.stack([s.strip_ids for s in samples]),
         strip_names=[s.strip_names for s in samples],
         doc_names=[s.doc_name for s in samples],
+    )
+
+
+def pad_wordbatch(batch: WordBatch, B: int) -> WordBatch:
+    """Pad a tail word batch up to `B` samples so fixed-shape steps accept
+    it; callers mask out the padding rows (`arange(B) < real`). Padding
+    rows are white images with zero-length labels, mirroring
+    `pad_docbatch` (the reference iterates every val sample,
+    `train_nn_area.py:327-345`)."""
+    b = batch.images.shape[0]
+    if b >= B:
+        return batch
+    pad = B - b
+
+    def _z(a, fill=0):
+        ext = np.full((pad, *a.shape[1:]), fill, a.dtype)
+        return np.concatenate([a, ext], axis=0)
+
+    return WordBatch(
+        images=_z(batch.images, fill=1.0),
+        labels=_z(batch.labels),
+        lengths=_z(batch.lengths),
+        strip_ids=_z(batch.strip_ids),
+        texts=batch.texts + [""] * pad,
+        names=batch.names + [""] * pad,
     )
 
 
@@ -77,6 +123,19 @@ def pad_docbatch(batch: DocBatch, D: int) -> DocBatch:
         strip_names=batch.strip_names + [[] for _ in range(pad)],
         doc_names=batch.doc_names + [""] * pad,
     )
+
+
+def blank_wordbatch(like: WordBatch, B: int) -> WordBatch:
+    """An all-padding word batch with `like`'s per-row shapes: B white
+    images with zero-length labels (counterpart of `blank_docbatch`)."""
+
+    def _z(a, fill=0):
+        return np.full((B, *a.shape[1:]), fill, a.dtype)
+
+    return WordBatch(
+        images=_z(like.images, 1.0), labels=_z(like.labels),
+        lengths=_z(like.lengths), strip_ids=_z(like.strip_ids),
+        texts=[""] * B, names=[""] * B)
 
 
 def blank_docbatch(like: DocBatch, D: int) -> DocBatch:
@@ -130,7 +189,7 @@ def batch_iterator(
     if host_shard is not None:
         raise NotImplementedError(
             "host_shard: multi-process data sharding is not ported yet "
-            "(ROADMAP.md Queue 1 item 12)")
+            "(ROADMAP.md Queue 1 item 7)")
     n = len(indices)
     end = n - (n % batch_size) if drop_last else n
 
@@ -246,3 +305,19 @@ def doc_batch_to(batch: DocBatch, device: torch.device) -> DocTensors:
     return DocTensors(**{
         f.name: torch.from_numpy(getattr(batch, f.name)).to(device)
         for f in dataclasses.fields(DocTensors)})
+
+
+@dataclasses.dataclass
+class WordTensors:
+    """The arrays of a `WordBatch` that the CRNN steps take, as tensors on
+    one device."""
+    images: torch.Tensor       # (B, 1, H, W) float32
+    labels: torch.Tensor       # (B, L) int32
+    lengths: torch.Tensor      # (B,) int32
+
+
+def word_batch_to(batch: WordBatch, device: torch.device) -> WordTensors:
+    """Copy `batch`'s arrays to `device`."""
+    return WordTensors(**{
+        f.name: torch.from_numpy(getattr(batch, f.name)).to(device)
+        for f in dataclasses.fields(WordTensors)})

@@ -19,6 +19,16 @@ import torch
 from qea_ocr_tpu_torch.ops.cuda import gather_cuda
 
 
+def get_text_stack(doc: torch.Tensor, bboxes: torch.Tensor,
+                   h_out: int = 32, w_out: int = 128) -> torch.Tensor:
+    """One document: doc (H, W) or (1, H, W) float32, bboxes (S, 4) int32
+    -> (S, 1, h_out, w_out) strips. The batched gather with D=1."""
+    if doc.dim() == 2:
+        doc = doc[None]
+    return gather_cuda.text_stack(doc[None], bboxes[None], h_out,
+                                  w_out)[0, :, None]
+
+
 def get_text_stack_batch(docs: torch.Tensor, bboxes: torch.Tensor,
                          h_out: int = 32, w_out: int = 128) -> torch.Tensor:
     """docs (D, 1, H, W) float32, bboxes (D, S, 4) int32

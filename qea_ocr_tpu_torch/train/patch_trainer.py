@@ -31,9 +31,9 @@ hand-written channel-major conv kernel. The twin serves `prep_extract` and
 `val_forward` only.
 
 Not ported yet, each raising `NotImplementedError`: `data_parallel`,
-`tensor_parallel` and multi-process runs (ROADMAP.md Queue 1 item 12),
-`pruning_artifact` (item 1: `pruning/` and `utils/native.py`),
-`optuna_trial` (item 13), and the real OCR back ends (item 1).
+`tensor_parallel` and multi-process runs (ROADMAP.md Queue 1 item 7),
+`pruning_artifact` and `optuna_trial` (item 8: `pruning/` and `sweeps/`),
+and the real OCR back ends (item 9).
 """
 
 from __future__ import annotations
@@ -124,8 +124,8 @@ class PatchTrainerConfig:
                               # reference; identical budget accounting).
                               # False restores reference-exact synchronous
                               # querying.
-    data_parallel: bool = False  # not ported yet (ROADMAP Queue 1 item 12)
-    tensor_parallel: int = 0     # not ported yet (ROADMAP Queue 1 item 12)
+    data_parallel: bool = False  # not ported yet (ROADMAP Queue 1 item 7)
+    tensor_parallel: int = 0     # not ported yet (ROADMAP Queue 1 item 7)
     prep_ema: float = 0.0  # >0: keep an exponential moving average of the
                            # prep parameters (decay = this value, updated
                            # after every phase-B step) and use it for
@@ -150,7 +150,7 @@ class PatchTrainerConfig:
     lstm_hidden: int = 256
     unet_features: int = 32
     use_wandb: bool = False
-    optuna_trial: object = None            # not ported yet (item 13)
+    optuna_trial: object = None            # not ported yet (item 8)
     # the port's addition
     device: str = "cuda"   # torch device; a missing GPU is an error
 
@@ -160,8 +160,8 @@ class TrainNNPrep:
 
     def __init__(self, cfg: PatchTrainerConfig):
         self.cfg = cfg
-        for flag, item in (("data_parallel", 12), ("tensor_parallel", 12),
-                           ("pruning_artifact", 1), ("optuna_trial", 13)):
+        for flag, item in (("data_parallel", 7), ("tensor_parallel", 7),
+                           ("pruning_artifact", 8), ("optuna_trial", 8)):
             if getattr(cfg, flag):
                 raise NotImplementedError(
                     f"{flag} is not ported to qea_ocr_tpu_torch yet "

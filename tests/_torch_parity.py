@@ -57,3 +57,17 @@ def jax_variables(state):
     return {"params": jax.tree_util.tree_map(np.asarray, dict(state.params)),
             "batch_stats": jax.tree_util.tree_map(np.asarray,
                                                   dict(state.batch_stats))}
+
+
+def parser_flags(parser):
+    """An argparse parser's options as comparable records, by destination,
+    in the order they were added (help texts left out)."""
+    out = {}
+    for a in parser._actions:
+        if a.dest == "help":
+            continue
+        out[a.dest] = dict(
+            options=tuple(a.option_strings), default=a.default, type=a.type,
+            nargs=a.nargs, kind=type(a).__name__,
+            choices=None if a.choices is None else tuple(a.choices))
+    return out

@@ -15,23 +15,12 @@ from qea_ocr_tpu.train.patch_trainer import PatchTrainerConfig as JConfig
 from qea_ocr_tpu_torch.cli import patch_cli as tcli
 from qea_ocr_tpu_torch.train.patch_trainer import PatchTrainerConfig
 
-import _torch_parity  # noqa: F401  (one torch thread)
-
-
-def _flags(parser):
-    out = {}
-    for a in parser._actions:
-        if a.dest == "help":
-            continue
-        out[a.dest] = dict(
-            options=tuple(a.option_strings), default=a.default, type=a.type,
-            nargs=a.nargs, kind=type(a).__name__,
-            choices=None if a.choices is None else tuple(a.choices))
-    return out
+from _torch_parity import parser_flags  # (and one torch thread)
 
 
 def test_flags_equal_the_jax_cli():
-    j, t = _flags(jcli.build_parser()), _flags(tcli.build_parser())
+    j, t = parser_flags(jcli.build_parser()), parser_flags(
+        tcli.build_parser())
     assert t.pop("device")["default"] == "cuda"
     assert list(t) == list(j)                  # the same flags, in order
     for dest in j:

@@ -104,7 +104,7 @@ def _batch_iterator():
     _assert_batches_equal(t_pipeline.blank_docbatch(tbs[0], 3),
                           j_pipeline.blank_docbatch(jbs[0], 3))
     assert t_pipeline.default_num_workers() == j_pipeline.default_num_workers()
-    with pytest.raises(NotImplementedError, match="item 12"):
+    with pytest.raises(NotImplementedError, match="item 7"):
         next(t_pipeline.batch_iterator(td, 2, t_pipeline.collate_docs,
                                        host_shard=(0, 2)))
 
@@ -205,8 +205,74 @@ def _state_dicts():
             np.testing.assert_array_equal(got[k], want[k], err_msg=k)
 
 
+def _words():
+    from qea_ocr_tpu.data.datasets import SyntheticWordDataset as JWords
+    from qea_ocr_tpu_torch.data.datasets import SyntheticWordDataset as TWords
+    jw, tw = JWords(11, seed=4), TWords(11, seed=4)
+    assert tw.names == jw.names
+    jc, tc = JCharMap.default(), TCharMap.default()
+    jb = j_pipeline.collate_words(jw.samples[:7], jc)
+    tb = t_pipeline.collate_words(tw.samples[:7], tc)
+    _assert_batches_equal(tb, jb)
+    _assert_batches_equal(t_pipeline.pad_wordbatch(tb, 10),
+                          j_pipeline.pad_wordbatch(jb, 10))
+    _assert_batches_equal(t_pipeline.blank_wordbatch(tb, 3),
+                          j_pipeline.blank_wordbatch(jb, 3))
+    for opts in (dict(seed=2, epoch=1), dict(shuffle=False, drop_last=False)):
+        jbs = list(j_pipeline.batch_iterator(
+            jw, 4, lambda s: j_pipeline.collate_words(s, jc), **opts))
+        tbs = list(t_pipeline.batch_iterator(
+            tw, 4, lambda s: t_pipeline.collate_words(s, tc), **opts))
+        assert len(tbs) == len(jbs) > 1
+        for tb, jb in zip(tbs, jbs):
+            _assert_batches_equal(tb, jb)
+
+
+def _native():
+    from qea_ocr_tpu.utils import native as j_native
+    from qea_ocr_tpu_torch.utils import native as t_native
+    assert t_native._LIB_PATH == j_native._LIB_PATH
+    assert t_native.have_native() == j_native.have_native()
+    rng = np.random.default_rng(9)
+    B, L1, L2 = 40, 31, 100
+    a, b = rng.integers(1, 6, (B, L1)), rng.integers(1, 6, (B, L2))
+    a_len, b_len = rng.integers(0, L1 + 1, B), rng.integers(0, 40, B)
+    b[:8, :L1] = a[:8]
+    b_len[:8] = a_len[:8]
+    for fn, args in (("batch_levenshtein", (a, a_len, b, b_len)),
+                     ("compare_labels", (a, a_len, b, b_len)),
+                     ("pairwise_levenshtein", (b[:, :8].reshape(8, 5, 8),
+                                               b_len.reshape(8, 5) % 9)),
+                     ("ctc_collapse", (a, 0, 95)),
+                     ("facility_location_indices", (rng.random(30), 7))):
+        got, want = getattr(t_native, fn)(*args), getattr(j_native, fn)(*args)
+        for g, w in zip(*(x if isinstance(x, tuple) else (x,)
+                          for x in (got, want))):
+            np.testing.assert_array_equal(g, w, err_msg=fn)
+    assert t_native.compare_labels(a, a_len, b, b_len)[0] >= 8
+    words = ["".join(rng.choice(list("abcé "), rng.integers(0, 12)))
+             for _ in range(30)]
+    assert t_native.string_cer(words, words[::-1]) \
+        == j_native.string_cer(words, words[::-1])
+
+
+def _cer_of_batch():
+    from qea_ocr_tpu.tools.cer_seed import cer_of_batch as j_cer
+    from qea_ocr_tpu_torch.tools.cer_seed import cer_of_batch as t_cer
+    rng = np.random.default_rng(10)
+    chars = list(j_config.CHAR_SET[1:20]) + ["é", " "]
+    gts = ["".join(rng.choice(chars, rng.integers(0, 15))) for _ in range(25)]
+    ocr = [g[: len(g) // 2] + "x" if i % 3 else g for i, g in enumerate(gts)]
+    got = t_cer(ocr, gts, TCharMap.default())
+    want = j_cer(ocr, gts, JCharMap.default())
+    assert got.dtype == want.dtype
+    np.testing.assert_array_equal(got, want)
+    assert (got == 0).sum() >= 5 and (got > 0).sum() >= 5
+
+
 @pytest.mark.parametrize("case", [_config, _charmap, _documents, _fake_ocr,
-                                  _state_dicts, _batch_iterator, _ocr_engine],
+                                  _state_dicts, _batch_iterator, _ocr_engine,
+                                  _words, _native, _cer_of_batch],
                          ids=lambda f: f.__name__[1:])
 def test_copy_equals_original(case):
     case()

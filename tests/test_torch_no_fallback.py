@@ -37,7 +37,10 @@ def test_port_modules_never_import_jax():
                 "selection.samplers", "selection.api", "tracking.history",
                 "tracking.weights", "models.attention", "ocr.engine",
                 "utils.io", "utils.metrics", "train.patch_trainer",
-                "cli.patch_cli"):
+                "cli.patch_cli", "train.crnn_trainer", "cli.train_crnn",
+                "eval.eval_utils", "eval.eval_crnn", "eval.eval_prep",
+                "cli.eval_crnn", "cli.eval_prep", "utils.native",
+                "tools.cer_seed", "tools.quality_run"):
         assert "qea_ocr_tpu_torch." + new in mods, new
     code = ("import importlib, sys\n"
             f"for m in {mods!r}: importlib.import_module(m)\n"

@@ -334,9 +334,9 @@ def test_conv_impl_env_reroutes_the_twin_only(tmp_path, monkeypatch):
 
 
 @pytest.mark.parametrize("flag,value,item", [
-    ("data_parallel", True, "item 12"), ("tensor_parallel", 2, "item 12"),
-    ("pruning_artifact", "x.json", "item 1"),
-    ("optuna_trial", object(), "item 13")])
+    ("data_parallel", True, "item 7"), ("tensor_parallel", 2, "item 7"),
+    ("pruning_artifact", "x.json", "item 8"),
+    ("optuna_trial", object(), "item 8")])
 def test_unported_options_raise_naming_the_roadmap(tmp_path, flag, value,
                                                    item):
     with pytest.raises(NotImplementedError, match=item):

@@ -13,6 +13,7 @@ from qea_ocr_tpu.ops.pallas.gather_pallas import text_stack_pallas
 from qea_ocr_tpu.ops.text_stack import get_text_stack
 from qea_ocr_tpu.ops.text_stack import get_text_stack_batch as jax_batch
 from qea_ocr_tpu_torch.ops.cuda import gather_cuda
+from qea_ocr_tpu_torch.ops.text_stack import get_text_stack as port_one
 from qea_ocr_tpu_torch.ops.text_stack import get_text_stack_batch
 
 
@@ -125,3 +126,18 @@ def test_cuda_wrapper_validates_before_launch():
     with pytest.raises(ValueError):
         gather_cuda.text_stack_bwd_cuda(torch.zeros(1, 3, 32, 128), boxes,
                                         (1, 1, 64, 256))     # strip mismatch
+
+
+@pytest.mark.parametrize("shape", [(64, 256), (1, 64, 256)])
+def test_one_document_form_matches_jax(shape):
+    """`get_text_stack` on one (H, W) or (1, H, W) document with (S, 4)
+    boxes, as the CER seed calls it, against the JAX function."""
+    rng = np.random.default_rng(3)
+    doc = rng.random(shape, dtype=np.float32)
+    bboxes = _boxes(rng, 1, 5, 64, 256)[0]
+    bboxes[0] = (250, 60, 270, 70)                   # out of the corner
+    got = port_one(torch.from_numpy(doc), torch.from_numpy(bboxes)).numpy()
+    assert got.shape == (5, 1, 32, 128) and got.dtype == np.float32
+    np.testing.assert_array_equal(
+        got, np.asarray(get_text_stack(jnp.asarray(doc),
+                                       jnp.asarray(bboxes))))
