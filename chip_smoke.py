@@ -122,6 +122,32 @@ Phases; any failure raises, so the exit code is non-zero:
                  distance recomputed here from the OCR's texts (a check of
                  the CER bookkeeping, not of the gather); and whether the
                  native host library loaded. Any other launch count fails.
+  8. area      - the area (word-crop) trainer through `cli/area_cli.py` at
+                 full width on the card, from the warmup's checkpoint:
+                 UNet(32) on the library route, 256 training and 72
+                 validation crops in batches of 64 (the tail of 8 padded
+                 and masked), 2 epochs, topKCER at 0.5, window 3, one jitter
+                 copy, cosine rates on both models, the EMA at 0.99 after
+                 one pretraining epoch. Launches: per step 3 CTC forwards
+                 with alpha and 3 backwards (phase A's history CTC over
+                 B*W = 192 rows, its jitter copy, phase B), 1 forward per
+                 validation batch: 28 and 24, nothing else. The ledger
+                 exactly 2 x (256 + 72) = 656 queries with the logged
+                 counters train-only; finite losses under the JAX keys; the
+                 side JSONs, the PNG and the checkpoints (Prep_model_best
+                 where an epoch's accuracy beat 0); the last
+                 Prep_model_* reloaded strictly and equal to the EMA. Then
+                 both CTC kernels against their plain versions at phase A's
+                 history shape and phase B's on one training batch, and an
+                 area step (phase A + phase B, losses read) timed.
+  9. export    - the trainer phase's last UNet checkpoint through
+                 `tools/export_model.py` on the card at (8, 1, 400, 512):
+                 with `QEA_CONV_IMPL=cmajor` it must raise before writing;
+                 the artifact is loaded by a Python process that cannot
+                 import the port and its output held against the eager
+                 eval forward (max 2e-2, mean 2e-3: the JAX export test's
+                 bounds); bytes, export, CUDA set-up, load and forward
+                 times logged.
 
 The line before last is the card's name and power limit, and before it a
 JSON line with each kernel's launches, error, times and bound; the last line
@@ -191,6 +217,12 @@ LAUNCHES_TRAINER_STEP = {"gather_fwd": 2, "gather_bwd": 1, "ctc_fwd": 3,
 LAUNCHES_VAL_BATCH = {"gather_fwd": 1, "gather_bwd": 0, "ctc_fwd": 1,
                       "ctc_bwd": 0, "conv": CONVS_PER_FORWARD}
 TWIN_DOC_ATOL = 2e-3       # twin vs vanilla eval forward, bf16, sigmoid output
+# the area phase: 256 training and 72 validation crops in batches of 64 (the
+# tail batch of 8 padded and masked), history window 3, 2 epochs
+AREA_TRAIN, AREA_VAL, AREA_BATCH, AREA_WINDOW, AREA_EPOCHS = 256, 72, 64, 3, 2
+# the exported artifact vs the eager eval forward: the JAX export test's
+# bounds for a bfloat16 UNet (`tests/test_export.py:38-39`)
+EXPORT_MAX_ERR, EXPORT_MEAN_ERR = 2e-2, 2e-3
 
 
 def log(msg: str) -> None:
@@ -1692,7 +1724,262 @@ def run_pipeline(torch, dev, card, work, prep_ckpt):
         f"mean CER {np.mean(list(cers.values())):.4f}; native host library "
         f"loaded: {native.have_native()}")
     readings["have_native"] = native.have_native()
-    return total, readings
+    return total, readings, ckpts[0]
+
+
+def run_area(torch, dev, card, exp, crnn_ckpt):
+    """The area (word-crop) trainer through `cli/area_cli.py` at full width
+    on the card, from the pipeline phase's warmup checkpoint, writing under
+    `exp`; then both CTC kernels against their plain versions at phase A's
+    history shape and phase B's, and an area step timed. Returns the kernel
+    launch counts of the training run, its readings and the CTC errors."""
+    import glob
+
+    from qea_ocr_tpu_torch.cli import area_cli
+    from qea_ocr_tpu_torch.data import collate_words
+    from qea_ocr_tpu_torch.models.unet import UNet
+    from qea_ocr_tpu_torch.tracking import decaying_weights
+    from qea_ocr_tpu_torch.utils.io import load_checkpoint
+
+    B, W, prop = AREA_BATCH, AREA_WINDOW, 0.5
+    argv = ["--device", "cuda", "--ocr", "Fake", "--dataset", "synthetic",
+            "--batch_size", str(B), "--synthetic_train_size",
+            str(AREA_TRAIN), "--synthetic_val_size", str(AREA_VAL),
+            "--epoch", str(AREA_EPOCHS), "--minibatch_subset", "topKCER",
+            "--minibatch_subset_prop", str(prop), "--inner_limit", "2",
+            "--inner_limit_skip", "--window_size", str(W),
+            "--lr_scheduler", "cosine", "--lr_scheduler_prep", "cosine",
+            "--prep_ema", "0.99", "--prep_pretrain_epochs", "1",
+            "--crnn_model", crnn_ckpt, "--unet_features", str(UNET_FEATURES),
+            "--lstm_hidden", str(LSTM_HIDDEN), "--exp_base_path", exp]
+    _reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    trainer = area_cli.main(argv)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    counts = _counts()
+    steps, val_batches = AREA_TRAIN // B, -(-AREA_VAL // B)
+    want = {k: 0 for k in counts}
+    want.update(ctc_fwd=AREA_EPOCHS * (3 * steps + val_batches),
+                ctc_bwd=AREA_EPOCHS * 3 * steps)
+    log(f"[area] kernel launches in this phase: {json.dumps(counts)}")
+    if counts != want:
+        raise AssertionError(f"launches in the area phase {counts}, "
+                             f"expected {want}")
+
+    # the ledger: ceil(64 * 0.5) = 32 crops a step queried once clean and
+    # once jittered; validation reads every crop; the logged counters are
+    # the training queries only
+    train_calls = steps * 2 * int(np.ceil(B * (1 - prop)))
+    if trainer.ocr.total_calls != AREA_EPOCHS * (train_calls + AREA_VAL) \
+            or trainer.ocr.count_calls != trainer.ocr.total_calls:
+        raise AssertionError(f"area query ledger {trainer.ocr.total_calls}, "
+                             f"expected {AREA_EPOCHS * (train_calls + AREA_VAL)}")
+    with open(os.path.join(exp, "metrics.jsonl")) as f:
+        recs = [json.loads(line) for line in f]
+    if len(recs) != AREA_EPOCHS:
+        raise AssertionError(f"{len(recs)} area epochs logged")
+    for i, rec in enumerate(recs):
+        if rec["Black-Box Calls"] != train_calls \
+                or rec["Total Black-Box Calls"] != (i + 1) * train_calls:
+            raise AssertionError(f"area query ledger of epoch {i}: {rec}")
+        if not all(np.isfinite(rec[k]) for k in (
+                "train_loss", "val_loss", "CRNN_loss", "CRNN_CER",
+                "Fake_cer")):
+            raise AssertionError(f"non-finite losses in area epoch {i}: "
+                                 f"{rec}")
+        log(f"[area] epoch {rec['Epoch']}: train_loss "
+            f"{rec['train_loss']:.4f}, val_loss {rec['val_loss']:.4f}, "
+            f"CRNN_loss {rec['CRNN_loss']:.4f}, cleaned-crop OCR accuracy "
+            f"{rec['Fake_accuracy']:.4f} CER {rec['Fake_cer']:.4f}, queries "
+            f"{rec['Black-Box Calls']} + {AREA_VAL}")
+    for name in ("tracked_labels/tracked_labels_current.json",
+                 "selected_samples/selected_samples_current.json",
+                 "cers/all_cers.json", f"img_out/out_{AREA_EPOCHS - 1}.png",
+                 f"ckpts/CRNN_model_{AREA_EPOCHS - 1}", "params.txt"):
+        if not os.path.exists(os.path.join(exp, name)):
+            raise AssertionError(f"the area trainer did not write {name}")
+    # Prep_model_best is written when an epoch's OCR accuracy beats 0 (as
+    # in the JAX trainer)
+    best = os.path.exists(os.path.join(exp, "ckpts", "Prep_model_best"))
+    if best != (max(r["Fake_accuracy"] for r in recs) > 0):
+        raise AssertionError(f"Prep_model_best written: {best}, accuracies "
+                             f"{[r['Fake_accuracy'] for r in recs]}")
+    # the last epoch's UNet checkpoint reloads strictly and holds the EMA
+    # parameters, not the raw ones
+    ckpt = [p for p in glob.glob(os.path.join(
+        exp, "ckpts", f"Prep_model_{AREA_EPOCHS - 1}_*"))
+        if not p.endswith(".optim")]
+    if len(ckpt) != 1:
+        raise AssertionError(f"area checkpoints: {ckpt}")
+    reloaded = UNet(init_features=UNET_FEATURES, conv_impl="xla")
+    load_checkpoint(ckpt[0], reloaded)
+    for got, ema, raw in zip(reloaded.parameters(), trainer.ema_params,
+                             trainer.prep_model.parameters()):
+        if not torch.equal(got, ema.cpu()):
+            raise AssertionError("the area checkpoint is not the EMA")
+    if all(torch.equal(e, r) for e, r in zip(
+            trainer.ema_params, trainer.prep_model.parameters())):
+        raise AssertionError("the EMA equals the raw parameters")
+    log(f"[area] area_cli.main: {AREA_EPOCHS} epochs with a pretraining "
+        f"epoch, set-up, OCR and checkpoints in {seconds:.2f} s; "
+        f"Prep_model_best written: {best}; {card}")
+
+    # one training batch as the steps see it: the cleaned crops, the
+    # history labels the OCR gave them (phase A, B*W rows) and the ground
+    # truth (phase B, B rows); the trained CRNN's log-probs, frozen batch
+    # statistics as in both phases
+    cm = trainer.charmap
+    words = collate_words([trainer.train_ds[i] for i in range(B)], cm)
+    images = torch.from_numpy(words.images).to(dev)
+    crops = trainer.steps.prep_forward(images)
+    labs, lens, valid = trainer.history.gather(words.strip_ids)
+    if not valid[:, 0].any():
+        raise AssertionError("no history labels for the batch")
+    L = cm.max_len
+    trainer.crnn_model.eval()
+    with torch.no_grad():
+        lp = trainer.crnn_model(crops).float().contiguous()
+    errs = {}
+    for where, scores, lab, ln in (
+            ("phase A's history", lp.repeat_interleave(W, dim=1),
+             labs.reshape(B * W, L), lens.reshape(B * W)),
+            ("phase B's ground truth", lp, words.labels, words.lengths)):
+        lab_t = torch.from_numpy(np.ascontiguousarray(lab)).to(dev).int()
+        len_t = torch.from_numpy(np.ascontiguousarray(ln)).to(dev).int()
+        g = 1.0 / (scores.shape[1] * len_t.float().clamp(min=1.0))
+        _, e = hold_ctc(torch, scores.contiguous(), lab_t.contiguous(),
+                        len_t.contiguous(), g, cm.pad_id, f"the area's {where}")
+        errs[where] = e
+        log(f"[area] {where}: CTC kernels vs plain at T={scores.shape[0]} "
+            f"B={scores.shape[1]} V={scores.shape[2]} L={L}: "
+            f"{json.dumps(e)}")
+
+    # an area step alone after warm-up, without the OCR: phase A (history
+    # CTC over B*W rows and one jitter copy) and phase B, both losses read
+    bb_mask = np.zeros((B,), bool)
+    bb_mask[: B // 2] = True
+    hv = valid & bb_mask[:, None]
+    jitter = torch.from_numpy(trainer._noise(crops.cpu().numpy())[None]).to(dev)
+    a_args = [torch.from_numpy(np.ascontiguousarray(a)).to(dev) for a in (
+        bb_mask, labs, lens, hv)]
+    b_args = [torch.from_numpy(np.ascontiguousarray(a)).to(dev) for a in (
+        words.labels, words.lengths, words.strip_ids)]
+
+    def step():
+        float(trainer._patch_steps.phase_a(
+            crops, *a_args, decaying_weights(0.7, W, dev), jitter,
+            a_args[1][None, :, 0], a_args[2][None, :, 0], decaying=True,
+            inner_limit_skip=True))
+        float(trainer.steps.phase_b(
+            images, b_args[0], trainer.cer_table, trainer.ent_table,
+            b_args[1], b_args[2], update_crnn=False)[1]["loss"])
+    step_ms = _host_ms(torch, step)
+    _reset_counts()
+    log(f"[area] one area step (phase A on {B} crops x {W} history depths "
+        f"+ 1 jitter copy, phase B on {B}) with both losses read "
+        f"{step_ms:.2f} ms (host clock, median of 5, after warm-up; {card})")
+    return counts, dict(seconds=seconds, step_ms=step_ms,
+                        ledger=trainer.ocr.total_calls, best_written=best,
+                        fake_accuracy=[r["Fake_accuracy"] for r in recs]), errs
+
+
+_EXPORT_LOADER = """
+import sys, time
+import numpy as np
+import torch
+try:
+    import qea_ocr_tpu_torch
+except ImportError:
+    pass
+else:
+    sys.exit("the port is importable here")
+t0 = time.perf_counter()
+torch.zeros(1, device="cuda")
+cuda_s = time.perf_counter() - t0
+t0 = time.perf_counter()
+clean = torch.export.load(sys.argv[1]).module()
+load_s = time.perf_counter() - t0
+x = torch.from_numpy(np.load(sys.argv[2])).cuda()
+times = []
+with torch.no_grad():
+    for _ in range(6):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        y = clean(x)
+        torch.cuda.synchronize()
+        times.append(1e3 * (time.perf_counter() - t0))
+np.save(sys.argv[3], y.cpu().numpy())
+print(cuda_s, load_s, float(np.median(times[1:])))
+"""
+
+
+def run_export(torch, dev, card, work, prep_ckpt):
+    """The trainer phase's last UNet checkpoint through
+    `tools/export_model.py` on the card; the artifact loaded and run by a
+    Python process that cannot import the port, against the eager eval
+    forward; and the channel-major route refused before anything is
+    written. Returns the phase's readings."""
+    from qea_ocr_tpu_torch.data import PatchDocuments, collate_docs
+    from qea_ocr_tpu_torch.models.unet import UNet
+    from qea_ocr_tpu_torch.tools import export_model
+    from qea_ocr_tpu_torch.utils.io import load_checkpoint
+
+    out = os.path.join(work, "prep.pt2")
+    flags = ["--prep_path", prep_ckpt, "--batch_size", str(D), "--doc_size",
+             *map(str, DOC_SIZE), "--unet_features", str(UNET_FEATURES),
+             "--device", "cuda"]
+    refused = os.path.join(work, "refused.pt2")
+    with conv_impl_cmajor():
+        try:
+            export_model.main(flags + ["--out", refused])
+        except NotImplementedError as e:
+            log(f"[export] QEA_CONV_IMPL=cmajor refused: {e}")
+        else:
+            raise AssertionError("the export took the conv kernel's route")
+    if os.path.exists(refused):
+        raise AssertionError("the refused export wrote a file")
+    _reset_counts()
+    t0 = time.perf_counter()
+    info = export_model.main(flags + ["--out", out])
+    export_s = time.perf_counter() - t0
+    x = collate_docs(list(PatchDocuments.synthetic(
+        D, seed=61, n_strips=12, max_strips=S, doc_size=DOC_SIZE))).images
+    np.save(os.path.join(work, "x.npy"), x)
+    # -I: neither PYTHONPATH nor the current directory on sys.path, and the
+    # process runs outside the checkout
+    proc = subprocess.run(
+        [sys.executable, "-I", "-c", _EXPORT_LOADER, out, "x.npy", "y.npy"],
+        cwd=work, capture_output=True, text=True, timeout=300)
+    if proc.returncode != 0:
+        raise AssertionError(f"loading the artifact failed: {proc.stderr}")
+    cuda_s, load_s, artifact_ms = map(float, proc.stdout.split())
+    got = np.load(os.path.join(work, "y.npy"))
+    eager = UNet(init_features=UNET_FEATURES, conv_impl="xla")
+    load_checkpoint(prep_ckpt, eager)
+    eager = eager.to(dev).eval()
+    xs = torch.from_numpy(x).to(dev)
+    with torch.no_grad():
+        want = eager(xs).cpu().numpy()
+        eager_ms = _host_ms(torch, lambda: eager(xs))
+    if _counts() != {k: 0 for k in _counts()}:
+        raise AssertionError(f"the export phase launched {_counts()}")
+    diff = np.abs(got - want)
+    if got.shape != want.shape or not np.isfinite(got).all() \
+            or diff.max() > EXPORT_MAX_ERR or diff.mean() > EXPORT_MEAN_ERR:
+        raise AssertionError(f"artifact vs eager: shape {got.shape}, max "
+                             f"{diff.max()}, mean {diff.mean()}")
+    log(f"[export] {json.dumps(info)}: export {export_s:.2f} s; in a "
+        f"process without the port, CUDA set-up {cuda_s:.2f} s, then the "
+        f"artifact's load {load_s:.2f} s; artifact vs eager eval "
+        f"forward (D={D}, {DOC_SIZE}, bf16) max abs {diff.max():.3g}, mean "
+        f"{diff.mean():.3g}; a forward {artifact_ms:.2f} ms (artifact) / "
+        f"{eager_ms:.2f} ms (eager) (host clock, medians after warm-up; "
+        f"{card})")
+    return dict(bytes=info["bytes"], export_s=export_s, cuda_s=cuda_s,
+                load_s=load_s, artifact_ms=artifact_ms, eager_ms=eager_ms,
+                max_abs=float(diff.max()), mean_abs=float(diff.mean()))
 
 
 def main() -> None:
@@ -1742,13 +2029,16 @@ def main() -> None:
     with tempfile.TemporaryDirectory() as work:
         trainer_counts, twin, prep_ckpt = run_trainer(
             torch, dev, card, os.path.join(work, "trainer"))
-        pipeline_counts, pipeline = run_pipeline(torch, dev, card, work,
-                                                 prep_ckpt)
-    # the warmup's batch is one more shape the CTC kernels were held at
-    ctc_fwd["max_abs_err"] = max(ctc_fwd["max_abs_err"],
-                                 pipeline["warmup_ctc"]["nll_abs"])
-    ctc_bwd["max_abs_err"] = max(ctc_bwd["max_abs_err"],
-                                 pipeline["warmup_ctc"]["grad_abs"])
+        pipeline_counts, pipeline, crnn_ckpt = run_pipeline(
+            torch, dev, card, work, prep_ckpt)
+        area_counts, area, area_ctc = run_area(
+            torch, dev, card, os.path.join(work, "area"), crnn_ckpt)
+        export = run_export(torch, dev, card, work, prep_ckpt)
+    # the warmup's batch and the area's two shapes are more shapes the CTC
+    # kernels were held at
+    for errs in (pipeline["warmup_ctc"], *area_ctc.values()):
+        ctc_fwd["max_abs_err"] = max(ctc_fwd["max_abs_err"], errs["nll_abs"])
+        ctc_bwd["max_abs_err"] = max(ctc_bwd["max_abs_err"], errs["grad_abs"])
 
     csrc = "qea_ocr_tpu_torch/csrc/"
     pallas = "qea_ocr_tpu/ops/pallas/"
@@ -1763,7 +2053,8 @@ def main() -> None:
          "launches_inference": infer_counts[key],
          "launches_train": counts[key],
          "launches_trainer": trainer_counts[key],
-         "launches_pipeline": pipeline_counts[key], **record}
+         "launches_pipeline": pipeline_counts[key],
+         "launches_area": area_counts[key], **record}
         for key, name, source, replaces, record in (
             ("gather_fwd", "gather_fwd", "gather.cu", "gather_pallas.py:113",
              gather_fwd),
@@ -1780,6 +2071,8 @@ def main() -> None:
             raise AssertionError(f"{k['name']} never launched on its path")
     log(f"[trainer] twin vs vanilla: {json.dumps(twin)}")
     log(f"[pipeline] readings: {json.dumps(pipeline)}")
+    log(f"[area] readings: {json.dumps(area)}")
+    log(f"[export] readings: {json.dumps(export)}")
     print(json.dumps({"kernels": kernels}))
     print(gpu_line())
     print(json.dumps({"ok": True, "device": {

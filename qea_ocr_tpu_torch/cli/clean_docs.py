@@ -7,7 +7,9 @@ Run: python -m qea_ocr_tpu_torch.cli.clean_docs --prep_path prep.pt \
        --transcripts transcripts.json] [--device cuda]
 
 `--prep_path` is a reference-schema state_dict file, e.g. one written by
-`python -m qea_ocr_tpu.tools.export_torch --kind prep`.
+`python -m qea_ocr_tpu.tools.export_torch --kind prep`, or by
+`python -m qea_ocr_tpu_torch.tools.import_torch --kind prep` from a
+reference `Prep_model_*` pickle.
 """
 
 from __future__ import annotations

@@ -3,12 +3,16 @@
   * `add_gaussian_noise`: subtractive gaussian jitter with an optional
     per-image stochastic std, vectorised over the batch (reference
     `transform_helper.py:26-45`, `AddGaussianNoice`).
+  * `host_jitter`: the same jitter drawn on the host from a numpy
+    generator, for images the black-box OCR must see exactly as the model
+    trains on them (the trainers' `_noise`, bit for bit the JAX package's).
   * `pad_white_array`: the pure pad case of the reference's `PadWhite` for
     already-loaded arrays; resizing lives in the data layer.
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
@@ -48,6 +52,21 @@ def add_gaussian_noise(images: torch.Tensor, std: int = 5, *,
     noise = mean + unit_noise.float() * r_std.reshape(
         (B,) + (1,) * (images.dim() - 1))
     return torch.clamp(images - noise_coef * noise, 0.0, 1.0), noise
+
+
+def host_jitter(rng: np.random.Generator, images: np.ndarray, std: int,
+                random_std: bool) -> np.ndarray:
+    """`clip(images - std' * N(0, 1), 0, 1)` in float32, with `std'` drawn
+    per image from {0, .., std} / 100 when `random_std`, else std / 100: the
+    stds first, then the normals, from `rng` (the JAX trainers' order)."""
+    B = images.shape[0]
+    if random_std:
+        stds = rng.integers(0, std + 1, B) / 100.0
+    else:
+        stds = np.full(B, std / 100.0)
+    noise = rng.normal(0.0, 1.0, images.shape).astype(np.float32)
+    noise *= stds.reshape(B, *([1] * (images.ndim - 1))).astype(np.float32)
+    return np.clip(images - noise, 0.0, 1.0)
 
 
 def pad_white_array(img: torch.Tensor, height: int, width: int

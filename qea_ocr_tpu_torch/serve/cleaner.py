@@ -8,8 +8,10 @@ Both host-device transfers are uint8: normalisation and quantisation
 happen on the device. `clean_dir` keeps one batch in flight while the
 previous one is written, since CUDA work is queued asynchronously.
 
-Weights come from a reference-schema state_dict, the file
-`qea_ocr_tpu.tools.export_torch.export_prep` writes.
+Weights come from a reference-schema state_dict: a checkpoint of the port's
+trainers, the file `qea_ocr_tpu.tools.export_torch.export_prep` writes, or a
+reference `Prep_model_*` pickle converted by the port's
+`tools/import_torch.py`.
 """
 
 from __future__ import annotations

@@ -38,6 +38,7 @@ from qea_ocr_tpu_torch.ocr.base import get_ocr_helper
 from qea_ocr_tpu_torch.ocr.engine import OcrQueryEngine
 from qea_ocr_tpu_torch.ops.ctc import ctc_loss_mean, greedy_decode
 from qea_ocr_tpu_torch.ops.edit_distance import compare_labels_device
+from qea_ocr_tpu_torch.ops.transforms import host_jitter
 from qea_ocr_tpu_torch.train.state import adam_l2, set_learning_rate, step_lr
 from qea_ocr_tpu_torch.utils.charmap import CharMap
 from qea_ocr_tpu_torch.utils.device import resolve_device
@@ -177,16 +178,8 @@ class TrainCRNN:
         from the numpy generator: bit for bit the JAX package's.
         Semantics parity with `AddGaussianNoice` (`transform_helper.py:33-45`).
         """
-        cfg = self.cfg
-        B = images.shape[0]
-        if cfg.random_std:
-            stds = self._np_rng.integers(0, cfg.std + 1, B) / 100.0
-        else:
-            stds = np.full(B, cfg.std / 100.0)
-        noise = self._np_rng.normal(
-            0.0, 1.0, images.shape).astype(np.float32)
-        noise *= stds.reshape(B, *([1] * (images.ndim - 1))).astype(np.float32)
-        return np.clip(images - noise, 0.0, 1.0)
+        return host_jitter(self._np_rng, images, self.cfg.std,
+                           self.cfg.random_std)
 
     def _labels_for(self, batch: WordBatch, images: np.ndarray):
         """OCR-on-noisy labels when an OCR is configured, else GT."""

@@ -47,8 +47,8 @@ from qea_ocr_tpu_torch.train.crnn_trainer import scrub_nonfinite
 
 
 @contextlib.contextmanager
-def _modes(train: tuple[nn.Module, ...] = (),
-           frozen: tuple[nn.Module, ...] = ()):
+def model_modes(train: tuple[nn.Module, ...] = (),
+                frozen: tuple[nn.Module, ...] = ()):
     """Run with `train` models in train mode and `frozen` models in eval mode
     (batch statistics fixed; parameters still take gradients), restoring
     every model's mode afterwards."""
@@ -63,6 +63,21 @@ def _modes(train: tuple[nn.Module, ...] = (),
     finally:
         for m, mode in zip(models, before):
             m.train(mode)
+
+
+def optimizer_step(loss: torch.Tensor,
+                   *pairs: tuple[torch.optim.Optimizer, nn.Module]) -> None:
+    """One optimizer step on `loss` for each (optimizer, model) pair, the
+    non-finite gradient entries zeroed first. Gradients are taken for those
+    models' parameters only, so a model left out is a constant of the loss
+    and costs no backward work."""
+    params = [p for _, model in pairs for p in model.parameters()]
+    for opt, _ in pairs:
+        opt.zero_grad(set_to_none=True)
+    loss.backward(inputs=params)
+    scrub_nonfinite(params)
+    for opt, _ in pairs:
+        opt.step()
 
 
 def _chunk(x: torch.Tensor, G: int, dim: int = 0) -> tuple[torch.Tensor, ...]:
@@ -111,18 +126,6 @@ def make_steps(prep_model: nn.Module, crnn_model: nn.Module, charmap, *,
                              f"a {name}_optimizer")
         return opt
 
-    def _update(loss, *pairs) -> None:
-        """One optimizer step on `loss` for each (optimizer, model) pair.
-        Gradients are taken for those models' parameters only, so a model
-        left out is a constant of the loss and costs no backward work."""
-        params = [p for _, model in pairs for p in model.parameters()]
-        for opt, _ in pairs:
-            opt.zero_grad(set_to_none=True)
-        loss.backward(inputs=params)
-        scrub_nonfinite(params)
-        for opt, _ in pairs:
-            opt.step()
-
     def _per_doc_loss(scores, flat_labels, flat_lengths, strip_mask, doc_out):
         """Each real document contributes the mean over its own strips of
         the length-normalised CTC NLL plus sec_loss_scalar * MSE(doc,
@@ -153,7 +156,7 @@ def make_steps(prep_model: nn.Module, crnn_model: nn.Module, charmap, *,
         """UNet eval forward + strip gather: (doc_out (D, 1, H, W),
         strips (D*S, 1, h_out, w_out)), no gradient (phase A treats the
         UNet as frozen)."""
-        with _modes(frozen=(prep_eval_model,)):
+        with model_modes(frozen=(prep_eval_model,)):
             return _extract(images, bboxes, prep_eval_model)
 
     # ------------------------------------------------------------------
@@ -183,7 +186,7 @@ def make_steps(prep_model: nn.Module, crnn_model: nn.Module, charmap, *,
             raise ValueError("phase A has nothing to train on: "
                              "inner_limit_skip is false and there are no "
                              "jitter images")
-        with _modes(frozen=(crnn_model,)):
+        with model_modes(frozen=(crnn_model,)):
             if len(parts) * N <= phase_a_batch_rows:
                 # time-major (T, B, V): the parts lie along axis 1
                 part_scores = crnn_model(torch.cat(parts, dim=0)).split(
@@ -201,7 +204,7 @@ def make_steps(prep_model: nn.Module, crnn_model: nn.Module, charmap, *,
                 total = total + ctc_loss_mean(
                     part_scores[k + i], jitter_labels[i], jitter_lengths[i],
                     pad_id=pad_id, sample_mask=bb_mask)
-            _update(total, (opt, crnn_model))
+            optimizer_step(total, (opt, crnn_model))
         return total.detach()
 
     # ------------------------------------------------------------------
@@ -218,12 +221,12 @@ def make_steps(prep_model: nn.Module, crnn_model: nn.Module, charmap, *,
 
         # UNet in train mode (its batch statistics move); CRNN with frozen
         # batch statistics, its parameters updated only when update_crnn
-        with _modes(train=(prep_model,), frozen=(crnn_model,)):
+        with model_modes(train=(prep_model,), frozen=(crnn_model,)):
             doc_out, strips = _extract(images, bboxes)
             scores = crnn_model(strips)
             loss = _per_doc_loss(scores, flat_labels, flat_lengths,
                                  strip_mask, doc_out)
-            _update(loss, *pairs)
+            optimizer_step(loss, *pairs)
 
         # CER and entropy of every strip, written at the unmasked strip ids
         with torch.no_grad():
@@ -334,9 +337,9 @@ def make_steps(prep_model: nn.Module, crnn_model: nn.Module, charmap, *,
         which gives the preprocessor a readable starting point before the
         budget loop. Returns the loss."""
         opt = _optimizer(prep_optimizer, "prep")
-        with _modes(train=(prep_model,)):
+        with model_modes(train=(prep_model,)):
             loss = ((prep_model(images) - images) ** 2).mean()
-            _update(loss, (opt, prep_model))
+            optimizer_step(loss, (opt, prep_model))
         return loss.detach()
 
     # ------------------------------------------------------------------
@@ -346,7 +349,7 @@ def make_steps(prep_model: nn.Module, crnn_model: nn.Module, charmap, *,
         decoded lengths (N,) int32, loss scalar)."""
         D, S = bboxes.shape[:2]
         N = D * S
-        with _modes(frozen=(prep_eval_model, crnn_model)):
+        with model_modes(frozen=(prep_eval_model, crnn_model)):
             doc_out, strips = _extract(images, bboxes, prep_eval_model)
             scores = crnn_model(strips)
             loss = _per_doc_loss(scores, gt_labels.reshape(N, max_len),
@@ -357,7 +360,7 @@ def make_steps(prep_model: nn.Module, crnn_model: nn.Module, charmap, *,
     @torch.no_grad()
     def entropy_of(strips):
         """(N, 1, h, w) strips -> (N,) mean normalised CRNN entropy."""
-        with _modes(frozen=(crnn_model,)):
+        with model_modes(frozen=(crnn_model,)):
             return mean_sequence_entropy(crnn_model(strips))
 
     return SimpleNamespace(

@@ -58,13 +58,15 @@ from qea_ocr_tpu_torch.models.unet import UNet
 from qea_ocr_tpu_torch.ocr.base import get_ocr_helper
 from qea_ocr_tpu_torch.ocr.engine import OcrQueryEngine
 from qea_ocr_tpu_torch.ops.edit_distance import compare_labels_device
+from qea_ocr_tpu_torch.ops.transforms import host_jitter
 from qea_ocr_tpu_torch.selection import (
     GLOBAL_METHODS, is_global, membership_mask, select_batch)
 from qea_ocr_tpu_torch.tracking import (
     LabelHistory, attention_weights, decaying_weights, levenshtein_weights,
     weightgenerator_factory)
 from qea_ocr_tpu_torch.train.patch_steps import make_steps
-from qea_ocr_tpu_torch.train.state import adam_l2, set_learning_rate
+from qea_ocr_tpu_torch.train.state import (
+    adam_l2, ema_update, parameters_swapped, set_learning_rate)
 from qea_ocr_tpu_torch.utils.charmap import CharMap
 from qea_ocr_tpu_torch.utils.device import resolve_device
 from qea_ocr_tpu_torch.utils.io import (
@@ -286,25 +288,13 @@ class TrainNNPrep:
         self.ema_params: Optional[List[torch.Tensor]] = None  # _train_impl
 
     # ------------------------------------------------------------------
-    @contextlib.contextmanager
     def _eval_prep(self):
         """The prep as validation and checkpoints see it: with the EMA
         parameters in place of the raw ones when the EMA is on (the
         deployable artifact). The swap is in place, so the twin sees it."""
         if self.ema_params is None:
-            yield
-            return
-        params = list(self.prep_model.parameters())
-        raw = [p.detach().clone() for p in params]
-        with torch.no_grad():
-            for p, e in zip(params, self.ema_params):
-                p.copy_(e)
-        try:
-            yield
-        finally:
-            with torch.no_grad():
-                for p, r in zip(params, raw):
-                    p.copy_(r)
+            return contextlib.nullcontext()
+        return parameters_swapped(self.prep_model, self.ema_params)
 
     def _dev(self, x: np.ndarray) -> torch.Tensor:
         return torch.from_numpy(np.ascontiguousarray(x)).to(self.device)
@@ -321,15 +311,8 @@ class TrainNNPrep:
     def _noise(self, images: np.ndarray) -> np.ndarray:
         """Jitter for the OCR's inner loops, from the numpy generator (bit
         for bit the JAX package's)."""
-        cfg = self.cfg
-        B = images.shape[0]
-        if cfg.random_std:
-            stds = self._np_rng.integers(0, cfg.std + 1, B) / 100.0
-        else:
-            stds = np.full(B, cfg.std / 100.0)
-        noise = self._np_rng.normal(0.0, 1.0, images.shape).astype(np.float32)
-        noise *= stds.reshape(B, *([1] * (images.ndim - 1))).astype(np.float32)
-        return np.clip(images - noise, 0.0, 1.0)
+        return host_jitter(self._np_rng, images, self.cfg.std,
+                           self.cfg.random_std)
 
     def _selection_noise(self, shape) -> torch.Tensor:
         """Uniform [0, 1) numbers for the rank functions that draw points or
@@ -650,11 +633,8 @@ class TrainNNPrep:
                     micro_steps=cfg.micro_steps)
 
         if self.ema_params is not None:
-            with torch.no_grad():
-                params = [p.detach() for p in self.prep_model.parameters()]
-                torch._foreach_mul_(self.ema_params, cfg.prep_ema)
-                torch._foreach_add_(self.ema_params, params,
-                                    alpha=1.0 - cfg.prep_ema)
+            ema_update(self.ema_params, self.prep_model.parameters(),
+                       cfg.prep_ema)
 
         if cfg.minibatch_subset:
             D, S = len(batch.doc_names), cfg.max_strips

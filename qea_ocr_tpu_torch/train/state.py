@@ -10,8 +10,9 @@ the `nn.Module` (parameters and batch statistics) plus its optimizer
 
 from __future__ import annotations
 
+import contextlib
 import math
-from typing import Iterable
+from typing import Iterable, Sequence
 
 import torch
 
@@ -50,3 +51,31 @@ def step_lr(base_lr: float, epoch: int, step_size: int = 10,
 def cosine_lr(base_lr: float, epoch: int, t_max: int) -> float:
     """torch CosineAnnealingLR parity (eta_min=0)."""
     return base_lr * (1 + math.cos(math.pi * epoch / t_max)) / 2
+
+
+@torch.no_grad()
+def ema_update(ema: Sequence[torch.Tensor],
+               params: Iterable[torch.nn.Parameter], decay: float) -> None:
+    """`ema = decay * ema + (1 - decay) * params`, in place: the prep
+    trainers' `prep_ema` average, one update after each phase-B step."""
+    torch._foreach_mul_(ema, decay)
+    torch._foreach_add_(ema, [p.detach() for p in params], alpha=1.0 - decay)
+
+
+@contextlib.contextmanager
+def parameters_swapped(model: torch.nn.Module,
+                       values: Sequence[torch.Tensor]):
+    """`model`'s parameters overwritten in place by `values` (in
+    `parameters()` order) inside the block and restored after it. In place,
+    so a twin over the same tensors (`UNet.twin`) sees the swap too."""
+    params = list(model.parameters())
+    raw = [p.detach().clone() for p in params]
+    with torch.no_grad():
+        for p, v in zip(params, values):
+            p.copy_(v)
+    try:
+        yield
+    finally:
+        with torch.no_grad():
+            for p, r in zip(params, raw):
+                p.copy_(r)

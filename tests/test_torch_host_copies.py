@@ -270,9 +270,50 @@ def _cer_of_batch():
     assert (got == 0).sum() >= 5 and (got > 0).sum() >= 5
 
 
+def _reference_pickle():
+    """The unpickler of `tools/import_torch.py`: one whole-module pickle of
+    a class whose module is gone (with a DataParallel `module.` segment, a
+    batch norm's counter and a float64 tensor) and one state_dict pickle,
+    through both loaders."""
+    import sys
+    import tempfile
+    import types
+    from pathlib import Path
+
+    import torch
+
+    from qea_ocr_tpu.tools.import_torch import load_torch_state_dict as j_load
+    from qea_ocr_tpu_torch.tools.import_torch import (
+        load_torch_state_dict as t_load)
+    mod = types.ModuleType("qea_gone_reference")
+    cls = type("Convolutional", (torch.nn.Module,),
+               {"__module__": mod.__name__})
+    mod.Convolutional = cls
+    sys.modules[mod.__name__] = mod
+    torch.manual_seed(0)
+    net, inner = cls(), cls()
+    inner.add_module("conv1", torch.nn.Conv2d(1, 3, 3))
+    inner.add_module("batchnorm1", torch.nn.BatchNorm2d(3))
+    net.add_module("convo", torch.nn.DataParallel(inner))
+    net.register_buffer("scale", torch.arange(4, dtype=torch.float64))
+    with tempfile.TemporaryDirectory() as tmp:
+        whole, sd = Path(tmp) / "whole", Path(tmp) / "sd"
+        torch.save(net, whole)
+        torch.save(net.state_dict(), sd)
+        del sys.modules[mod.__name__]
+        for path in (whole, sd):
+            got, want = t_load(str(path)), j_load(str(path))
+            assert list(got) == list(want) and "convo.conv1.weight" in got
+            assert not any(k.endswith("num_batches_tracked") for k in got)
+            for k in want:
+                assert got[k].dtype == want[k].dtype == np.float32, k
+                np.testing.assert_array_equal(got[k], want[k], err_msg=k)
+
+
 @pytest.mark.parametrize("case", [_config, _charmap, _documents, _fake_ocr,
                                   _state_dicts, _batch_iterator, _ocr_engine,
-                                  _words, _native, _cer_of_batch],
+                                  _words, _native, _cer_of_batch,
+                                  _reference_pickle],
                          ids=lambda f: f.__name__[1:])
 def test_copy_equals_original(case):
     case()

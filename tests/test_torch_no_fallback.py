@@ -40,7 +40,8 @@ def test_port_modules_never_import_jax():
                 "cli.patch_cli", "train.crnn_trainer", "cli.train_crnn",
                 "eval.eval_utils", "eval.eval_crnn", "eval.eval_prep",
                 "cli.eval_crnn", "cli.eval_prep", "utils.native",
-                "tools.cer_seed", "tools.quality_run"):
+                "tools.cer_seed", "tools.quality_run", "train.area_trainer",
+                "cli.area_cli", "tools.import_torch", "tools.export_model"):
         assert "qea_ocr_tpu_torch." + new in mods, new
     code = ("import importlib, sys\n"
             f"for m in {mods!r}: importlib.import_module(m)\n"
