@@ -140,7 +140,29 @@ Phases; any failure raises, so the exit code is non-zero:
                  both CTC kernels against their plain versions at phase A's
                  history shape and phase B's on one training batch, and an
                  area step (phase A + phase B, losses read) timed.
-  9. export    - the trainer phase's last UNet checkpoint through
+  9. parallel  - the parallel layer on one card: the `QEA_*` variables of a
+                 world of one, and `patch_cli.main` makes the process group
+                 (it must be NCCL on cuda:0; its set-up timed). The trainer
+                 phase's run again with `--data_parallel`: the ledger equal
+                 to the trainer phase's, the first step's two losses within
+                 1e-5 (relative) and the epochs' losses within 1e-3, a step's
+                 host time beside the single-process one. Again with
+                 `--tensor_parallel 1` (FSDP2 shards on a 1x1 mesh): the
+                 LSTM stored as DTensors, the same launch counts as the
+                 trainer phase (8 conv launches a twin forward), the ledger
+                 equal, and its last checkpoint, loaded into a plain UNet,
+                 within 2e-2 of the data-parallel run's on an eval forward.
+                 `train_crnn.main` and `area_cli.main` with `--data_parallel`
+                 for an epoch each: ledgers as single-process.
+                 `DocumentCleaner(data_parallel=True)` on 16 documents,
+                 bitwise equal to single-process (the CLI's PNG input needs
+                 Pillow, absent on that machine: the CPU test
+                 `tests/test_torch_dp.py` runs `clean_docs --data_parallel`).
+                 The group is destroyed; every kernel must have launched in
+                 the phase (`launches_parallel`). Two ranks cannot share one
+                 card under NCCL: the 2- and 4-rank checks are the CPU
+                 tests'.
+ 10. export    - the trainer phase's last UNet checkpoint through
                  `tools/export_model.py` on the card at (8, 1, 400, 512):
                  with `QEA_CONV_IMPL=cmajor` it must raise before writing;
                  the artifact is loaded by a Python process that cannot
@@ -223,6 +245,17 @@ AREA_TRAIN, AREA_VAL, AREA_BATCH, AREA_WINDOW, AREA_EPOCHS = 256, 72, 64, 3, 2
 # the exported artifact vs the eager eval forward: the JAX export test's
 # bounds for a bfloat16 UNet (`tests/test_export.py:38-39`)
 EXPORT_MAX_ERR, EXPORT_MEAN_ERR = 2e-2, 2e-3
+# the parallel phase against the trainer phase, one card: at a world of one
+# every all-reduce is the identity, so the first step differs by rounding
+# only (the global batch norm's own sums against `F.batch_norm`); after
+# steps whose cuDNN backwards add in no fixed order, the epochs' losses
+# agree to 1e-3; two UNets trained that way, in the bfloat16 policy,
+# within the export bound
+PARALLEL_FIRST_RTOL, PARALLEL_EPOCH_RTOL = 1e-5, 1e-3
+PARALLEL_DOC_ATOL = EXPORT_MAX_ERR
+EPOCH_LOSS_KEYS = ("train_loss", "val_loss", "CRNN_loss")
+LEDGER_KEYS = ("Black-Box Calls", "Total Black-Box Calls",
+               "Train + Val BB Calls", "Total Train + Val BB Calls")
 
 
 def log(msg: str) -> None:
@@ -1344,11 +1377,20 @@ def conv_impl_cmajor():
             os.environ["QEA_CONV_IMPL"] = before
 
 
+def trainer_launches() -> dict:
+    """The kernel launches of one run of the trainer phase's configuration."""
+    return {k: TRAINER_EPOCHS * (
+        TRAINER_STEPS * LAUNCHES_TRAINER_STEP[k]
+        + TRAINER_VAL_BATCHES * LAUNCHES_VAL_BATCH[k])
+        for k in LAUNCHES_TRAINER_STEP}
+
+
 def run_trainer(torch, dev, card, exp):
     """The patch trainer through its CLI at full width on the card, the
     no-grad twin on the channel-major conv kernel, writing under `exp`.
     Returns the kernel launch counts of this phase, the twin-vs-vanilla
-    reading and the last epoch's UNet checkpoint."""
+    reading, the last epoch's UNet checkpoint and the run's argv, records
+    and step losses (for the parallel phase)."""
     import glob
 
     from qea_ocr_tpu_torch.cli import patch_cli
@@ -1373,13 +1415,11 @@ def run_trainer(torch, dev, card, exp):
     with conv_impl_cmajor():
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        patch_cli.main(argv)
+        trainer = patch_cli.main(argv)
         torch.cuda.synchronize()
         seconds = time.perf_counter() - t0
     counts = _counts()
-    want = {k: TRAINER_EPOCHS * (
-        TRAINER_STEPS * LAUNCHES_TRAINER_STEP[k]
-        + TRAINER_VAL_BATCHES * LAUNCHES_VAL_BATCH[k]) for k in counts}
+    want = trainer_launches()
     log(f"[trainer] kernel launches in this phase: {json.dumps(counts)}")
     if counts != want:
         raise AssertionError(f"launches in the trainer phase {counts}, "
@@ -1461,10 +1501,12 @@ def run_trainer(torch, dev, card, exp):
         f"10, CUDA events, order vanilla twin twin vanilla); max abs "
         f"difference {diff:.3g} ({card})")
     _reset_counts()
+    single = dict(argv=argv, records=recs, step_losses=trainer.step_losses,
+                  seconds=seconds)
     return counts, dict(vanilla_ms=vanilla_ms, twin_ms=twin_ms,
                         max_abs_diff=diff, seconds=seconds,
                         epoch_s=[r["time/epoch_s"] for r in recs],
-                        last_epoch_stage_s=stages), ckpt
+                        last_epoch_stage_s=stages), ckpt, single
 
 
 def _expect(phase: str, want: dict) -> dict:
@@ -1825,6 +1867,7 @@ def run_area(torch, dev, card, exp, crnn_ckpt):
     log(f"[area] area_cli.main: {AREA_EPOCHS} epochs with a pretraining "
         f"epoch, set-up, OCR and checkpoints in {seconds:.2f} s; "
         f"Prep_model_best written: {best}; {card}")
+    area_run = dict(argv=argv, records=recs, train_calls=train_calls)
 
     # one training batch as the steps see it: the cleaned crops, the
     # history labels the OCR gave them (phase A, B*W rows) and the ground
@@ -1882,7 +1925,245 @@ def run_area(torch, dev, card, exp, crnn_ckpt):
         f"{step_ms:.2f} ms (host clock, median of 5, after warm-up; {card})")
     return counts, dict(seconds=seconds, step_ms=step_ms,
                         ledger=trainer.ocr.total_calls, best_written=best,
-                        fake_accuracy=[r["Fake_accuracy"] for r in recs]), errs
+                        fake_accuracy=[r["Fake_accuracy"] for r in recs]), \
+        errs, area_run
+
+
+def _with_flag(argv: list, exp: str, *flags: str) -> list:
+    """`argv` with its `--exp_base_path` replaced by `exp` and `flags`
+    added."""
+    out = list(argv)
+    out[out.index("--exp_base_path") + 1] = exp
+    return out + list(flags)
+
+
+def _ledger(rec: dict) -> tuple:
+    return tuple(rec[k] for k in LEDGER_KEYS if k in rec)
+
+
+def run_parallel(torch, dev, card, work, single, area_run):
+    """The parallel layer on one card: a process group of one made by the
+    CLI from the `QEA_*` variables (NCCL on cuda:0), the patch trainer with
+    `--data_parallel` and with `--tensor_parallel 1` on the trainer phase's
+    configuration (`single`: its argv, records and step losses), the warmup
+    and the area trainer with `--data_parallel` for an epoch, and
+    data-parallel serving against single-process serving. Returns the
+    kernel launch counts of the whole phase and its readings."""
+    import glob
+
+    import torch.distributed as dist
+    from torch.distributed.tensor import DTensor
+
+    from qea_ocr_tpu_torch.cli import area_cli, patch_cli, train_crnn
+    from qea_ocr_tpu_torch.data import PatchDocuments, collate_docs
+    from qea_ocr_tpu_torch.models.unet import UNet
+    from qea_ocr_tpu_torch.parallel import multihost
+    from qea_ocr_tpu_torch.serve.cleaner import DocumentCleaner
+    from qea_ocr_tpu_torch.utils.io import load_checkpoint
+
+    t_phase = time.perf_counter()
+    os.environ.update(QEA_DISTRIBUTED="1", QEA_NUM_PROCESSES="1",
+                      QEA_PROCESS_ID="0",
+                      QEA_COORDINATOR=f"127.0.0.1:{_free_port()}")
+    # the CLI makes the group; time that call where it happens
+    init = multihost.maybe_init_distributed
+    setup = {}
+
+    def timed_init(device):
+        t0 = time.perf_counter()
+        made = not dist.is_initialized()
+        out = init(device)
+        if made:
+            torch.cuda.synchronize()
+            setup["s"] = time.perf_counter() - t0
+        return out
+
+    multihost.maybe_init_distributed = timed_init
+    readings = {}
+    _reset_counts()
+    try:
+        # (a) the patch trainer, data parallel, against the trainer phase
+        with conv_impl_cmajor():
+            exp_dp = os.path.join(work, "trainer_dp")
+            t0 = time.perf_counter()
+            dp = patch_cli.main(_with_flag(single["argv"], exp_dp,
+                                           "--data_parallel"))
+            torch.cuda.synchronize()
+            dp_s = time.perf_counter() - t0
+        if not (dist.is_initialized() and dist.get_backend() == "nccl"
+                and dist.get_world_size() == 1
+                and torch.cuda.current_device() == 0
+                and dp.device == torch.device("cuda", 0)):
+            raise AssertionError("the parallel phase is not on an NCCL group "
+                                 "of one on cuda:0")
+        if dp.group is None or dp._world != 1:
+            raise AssertionError("the data-parallel trainer has no group")
+        with open(os.path.join(exp_dp, "metrics.jsonl")) as f:
+            dp_recs = [json.loads(line) for line in f]
+        if [_ledger(r) for r in dp_recs] != \
+                [_ledger(r) for r in single["records"]]:
+            raise AssertionError(f"data-parallel ledger {dp_recs} differs "
+                                 f"from {single['records']}")
+        first = [abs(a - b) / abs(b) for a, b in zip(
+            dp.step_losses[0], single["step_losses"][0])]
+        if max(first) > PARALLEL_FIRST_RTOL:
+            raise AssertionError(f"first step losses {dp.step_losses[0]} vs "
+                                 f"{single['step_losses'][0]}")
+        epoch_rel = max(abs(a[k] - b[k]) / abs(b[k])
+                        for a, b in zip(dp_recs, single["records"])
+                        for k in EPOCH_LOSS_KEYS)
+        if epoch_rel > PARALLEL_EPOCH_RTOL:
+            raise AssertionError(f"epoch losses differ by {epoch_rel} "
+                                 f"(relative)")
+        step_keys = ("time/prep_extract_mean_s", "time/phase_ab_mean_s")
+        step_dp = sum(dp_recs[-1][k] for k in step_keys)
+        step_sp = sum(single["records"][-1][k] for k in step_keys)
+        log(f"[parallel] patch trainer --data_parallel (NCCL, world 1): "
+            f"ledger equal to the trainer phase's; first step losses "
+            f"(phase B, phase A) {dp.step_losses[0]} vs "
+            f"{single['step_losses'][0]}, largest relative difference "
+            f"{max(first):.3g}; epoch losses (train, val, CRNN) at most "
+            f"{epoch_rel:.3g} apart (relative); a step (prep_extract + "
+            f"phase_ab, host clock, mean over both epochs) "
+            f"{1e3 * step_dp:.2f} ms vs {1e3 * step_sp:.2f} ms single-process;"
+            f" patch_cli.main {dp_s:.2f} s vs {single['seconds']:.2f} s "
+            f"({card})")
+        readings.update(nccl_setup_s=setup.get("s"), dp_step_ms=1e3 * step_dp,
+                        sp_step_ms=1e3 * step_sp, first_step_rel=max(first),
+                        epoch_loss_rel=epoch_rel, dp_trainer_s=dp_s)
+        del dp
+
+        # (b) the same with the parameters stored sharded over a model axis
+        # of one (FSDP2): the twin still reaches the conv kernel
+        counts_before = _counts()
+        with conv_impl_cmajor():
+            exp_tp = os.path.join(work, "trainer_tp")
+            tp = patch_cli.main(_with_flag(single["argv"], exp_tp,
+                                           "--tensor_parallel", "1"))
+            torch.cuda.synchronize()
+        tp_counts = {k: v - counts_before[k] for k, v in _counts().items()}
+        if tp_counts != trainer_launches():
+            raise AssertionError(f"tensor-parallel launches {tp_counts}, "
+                                 f"expected {trainer_launches()}")
+        if not all(isinstance(p, DTensor)
+                   for p in tp.crnn_model.lstm.parameters()):
+            raise AssertionError("the tensor-parallel CRNN's LSTM is not "
+                                 "stored as DTensors")
+        n_dtensor = sum(isinstance(p, DTensor)
+                        for m in (tp.prep_model, tp.crnn_model)
+                        for p in m.parameters())
+        with open(os.path.join(exp_tp, "metrics.jsonl")) as f:
+            tp_recs = [json.loads(line) for line in f]
+        if [_ledger(r) for r in tp_recs] != \
+                [_ledger(r) for r in single["records"]]:
+            raise AssertionError(f"tensor-parallel ledger {tp_recs}")
+        del tp
+
+        def last_prep(exp):
+            return [p for p in glob.glob(os.path.join(
+                exp, "ckpts", f"Prep_model_{TRAINER_EPOCHS - 1}_*"))
+                if not p.endswith(".optim")][0]
+
+        docs = torch.from_numpy(collate_docs(list(PatchDocuments.synthetic(
+            D, seed=61, n_strips=12, max_strips=S, doc_size=DOC_SIZE))).images
+        ).to(dev)
+        outs = []
+        for exp in (exp_tp, exp_dp):
+            plain = UNet(init_features=UNET_FEATURES, conv_impl="xla")
+            load_checkpoint(last_prep(exp), plain)
+            with torch.no_grad():
+                outs.append(plain.to(dev).eval()(docs))
+        tp_diff = float((outs[0] - outs[1]).abs().max())
+        if not (torch.isfinite(outs[0]).all() and tp_diff <= PARALLEL_DOC_ATOL):
+            raise AssertionError(f"the tensor-parallel checkpoint's forward "
+                                 f"differs from the data-parallel one's by "
+                                 f"{tp_diff}")
+        step_tp = sum(tp_recs[-1][k] for k in step_keys)
+        log(f"[parallel] patch trainer --tensor_parallel 1 (FSDP2 on a 1x1 "
+            f"mesh): {n_dtensor} parameters stored as DTensors, launches "
+            f"{json.dumps(tp_counts)} (8 conv a twin forward), ledger equal;"
+            f" a step {1e3 * step_tp:.2f} ms (host clock, as above); its "
+            f"last checkpoint in a plain UNet against the data-parallel "
+            f"run's, eval forward on {D} documents: max abs difference "
+            f"{tp_diff:.3g}")
+        readings.update(tp_dtensors=n_dtensor, tp_checkpoint_diff=tp_diff,
+                        tp_step_ms=1e3 * step_tp)
+
+        # (c) the warmup and the area trainer, data parallel, one epoch each
+        n_train, n_val, batch = 256, 64, 64
+        warm = train_crnn.main([
+            "--device", "cuda", "--dataset", "synthetic", "--ocr", "Fake",
+            "--lstm_hidden", str(LSTM_HIDDEN), "--batch_size", str(batch),
+            "--synthetic_train_size", str(n_train),
+            "--synthetic_val_size", str(n_val), "--epoch", "1", "--std", "3",
+            "--crnn_model_path", os.path.join(work, "crnn_dp", "model"),
+            "--data_parallel"])
+        if warm.group is None or warm.ocr.total_calls != n_train + n_val:
+            raise AssertionError(f"data-parallel warmup ledger "
+                                 f"{warm.ocr.total_calls}, expected "
+                                 f"{n_train + n_val}")
+        del warm
+        exp_area = os.path.join(work, "area_dp")
+        argv = _with_flag(area_run["argv"], exp_area, "--data_parallel")
+        argv[argv.index("--epoch") + 1] = "1"
+        area = area_cli.main(argv)
+        with open(os.path.join(exp_area, "metrics.jsonl")) as f:
+            area_rec = json.loads(f.readline())
+        if area.group is None \
+                or area.ocr.total_calls != area_run["train_calls"] + AREA_VAL \
+                or _ledger(area_rec) != _ledger(area_run["records"][0]):
+            raise AssertionError(f"data-parallel area ledger "
+                                 f"{area.ocr.total_calls}, {area_rec}")
+        del area
+        log(f"[parallel] warmup and area trainers --data_parallel, one epoch "
+            f"each: ledgers {n_train + n_val} and "
+            f"{area_run['train_calls'] + AREA_VAL} as single-process")
+
+        # (d) serving: 16 documents, data parallel against single-process
+        sd = {k: v.cpu() for k, v in torch.load(
+            last_prep(exp_dp), map_location="cpu", weights_only=True).items()}
+        pages = list(collate_docs(list(PatchDocuments.synthetic(
+            2 * D, seed=62, n_strips=4, max_strips=S, doc_size=DOC_SIZE)
+        )).images[:, 0])
+        cleaned = [DocumentCleaner(
+            state_dict=sd, device="cuda", batch_size=D, doc_size=DOC_SIZE,
+            unet_features=UNET_FEATURES, data_parallel=flag
+        ).clean_arrays_uint8(pages) for flag in (True, False)]
+        if len(cleaned[0]) != 2 * D or not all(
+                np.array_equal(a, b) for a, b in zip(*cleaned)):
+            raise AssertionError("data-parallel serving differs from "
+                                 "single-process serving")
+        log(f"[parallel] DocumentCleaner(data_parallel=True) on {2 * D} "
+            f"documents: bitwise equal to single-process")
+        counts = _counts()
+    finally:
+        multihost.maybe_init_distributed = init
+        if dist.is_initialized():
+            dist.destroy_process_group()
+        for k in ("QEA_DISTRIBUTED", "QEA_NUM_PROCESSES", "QEA_PROCESS_ID",
+                  "QEA_COORDINATOR"):
+            os.environ.pop(k, None)
+    phase_s = time.perf_counter() - t_phase
+    log(f"[parallel] kernel launches in this phase: {json.dumps(counts)}")
+    for k, v in counts.items():
+        if v < 1:
+            raise AssertionError(f"{k} never launched in the parallel phase")
+    log(f"[parallel] phase wall time {phase_s:.2f} s, NCCL group set-up "
+        f"{setup.get('s', float('nan')):.3f} s; two or more ranks share no "
+        f"card here: the 2- and 4-rank checks are the CPU (Gloo) tests; "
+        f"{card}")
+    readings["phase_s"] = phase_s
+    _reset_counts()
+    return counts, readings
+
+
+def _free_port() -> int:
+    import socket
+    s = socket.socket()
+    s.bind(("127.0.0.1", 0))
+    port = s.getsockname()[1]
+    s.close()
+    return port
 
 
 _EXPORT_LOADER = """
@@ -2027,12 +2308,14 @@ def main() -> None:
     counts = run_train(torch, dev, card, cm)
     check_train_reference(torch, dev, cm)
     with tempfile.TemporaryDirectory() as work:
-        trainer_counts, twin, prep_ckpt = run_trainer(
+        trainer_counts, twin, prep_ckpt, single = run_trainer(
             torch, dev, card, os.path.join(work, "trainer"))
         pipeline_counts, pipeline, crnn_ckpt = run_pipeline(
             torch, dev, card, work, prep_ckpt)
-        area_counts, area, area_ctc = run_area(
+        area_counts, area, area_ctc, area_run = run_area(
             torch, dev, card, os.path.join(work, "area"), crnn_ckpt)
+        parallel_counts, parallel = run_parallel(
+            torch, dev, card, work, single, area_run)
         export = run_export(torch, dev, card, work, prep_ckpt)
     # the warmup's batch and the area's two shapes are more shapes the CTC
     # kernels were held at
@@ -2054,7 +2337,8 @@ def main() -> None:
          "launches_train": counts[key],
          "launches_trainer": trainer_counts[key],
          "launches_pipeline": pipeline_counts[key],
-         "launches_area": area_counts[key], **record}
+         "launches_area": area_counts[key],
+         "launches_parallel": parallel_counts[key], **record}
         for key, name, source, replaces, record in (
             ("gather_fwd", "gather_fwd", "gather.cu", "gather_pallas.py:113",
              gather_fwd),
@@ -2073,6 +2357,7 @@ def main() -> None:
     log(f"[pipeline] readings: {json.dumps(pipeline)}")
     log(f"[area] readings: {json.dumps(area)}")
     log(f"[export] readings: {json.dumps(export)}")
+    log(f"[parallel] readings: {json.dumps(parallel)}")
     print(json.dumps({"kernels": kernels}))
     print(gpu_line())
     print(json.dumps({"ok": True, "device": {

@@ -9,8 +9,9 @@ Ported so far: serving (`serve.cleaner`, `cli.clean_docs`), the patch trainer
 (`train.patch_trainer`, `cli.patch_cli`), the CRNN warmup, both evaluators,
 the CER seed and the quality run, the area (word-crop) trainer
 (`train.area_trainer`, `cli.area_cli`), the `torch.export` artifact of a
-trained UNet (`tools.export_model`) and the import of the reference's own
-checkpoints (`tools.import_torch`). Every TPU kernel has a hand-written CUDA
+trained UNet (`tools.export_model`), the import of the reference's own
+checkpoints (`tools.import_torch`), and data and tensor parallelism over
+`torch.distributed`, one process a GPU (`parallel`). Every TPU kernel has a hand-written CUDA
 counterpart in `csrc/`, built with `nvcc` at first use (`ops/cuda/build.py`).
 """
 

@@ -5,8 +5,11 @@ flag for flag the JAX package's, which is the reference's
 
 Run: python -m qea_ocr_tpu_torch.cli.area_cli --ocr Fake --dataset synthetic ...
 
-`--data_parallel` parses but is not ported yet: the trainer raises
-`NotImplementedError` naming the ROADMAP.md item.
+`--data_parallel` shards the crop batch over the processes of a
+`torch.distributed` group, one GPU each: `torchrun --nproc_per_node N -m
+qea_ocr_tpu_torch.cli.area_cli --data_parallel ...`, or the `QEA_*`
+variables of `parallel.multihost.maybe_init_distributed`, which `main`
+calls before the trainer is built.
 """
 
 from __future__ import annotations
@@ -69,7 +72,8 @@ def build_parser() -> argparse.ArgumentParser:
                         "(drift countermeasure; e.g. 0.99)")
     p.add_argument("--use_wandb", action="store_true")
     p.add_argument("--data_parallel", action="store_true",
-                   help="shard the crop batch over all devices")
+                   help="shard the crop batch over the processes of the "
+                        "process group, one GPU each")
     p.add_argument("--lstm_hidden", type=int, default=256,
                    help="CRNN BiLSTM hidden size (reference fixes 256)")
     p.add_argument("--unet_features", type=int, default=32,
@@ -115,17 +119,21 @@ def config_from_args(args):
 def main(argv=None):
     """Train as the flags say; returns the trainer (its models, tables and
     query ledger)."""
+    from qea_ocr_tpu_torch.parallel.multihost import (
+        maybe_init_distributed, process_shard)
     from qea_ocr_tpu_torch.train.area_trainer import TrainNNPrepArea
 
     args = build_parser().parse_args(argv)
     print("Training Arguments")
     print(args)
+    maybe_init_distributed(args.device)
     trainer = TrainNNPrepArea(config_from_args(args))
     start = datetime.datetime.now()
     trainer.train()
     end = datetime.datetime.now()
-    with open(os.path.join(args.exp_base_path, "params.txt"), "w") as f:
-        f.write(f"{start}\n{args}\n{end}\n")
+    if process_shard()[0] == 0:
+        with open(os.path.join(args.exp_base_path, "params.txt"), "w") as f:
+            f.write(f"{start}\n{args}\n{end}\n")
     return trainer
 
 

@@ -5,10 +5,18 @@ for hermetic runs), and `--device`.
 
 Run: python -m qea_ocr_tpu_torch.cli.patch_cli --ocr Fake --dataset synthetic ...
 
-`--data_parallel`, `--tensor_parallel` and `--pruning_artifact` parse but
-are not ported yet: the trainer raises `NotImplementedError` naming the
-ROADMAP.md item. `QEA_CONV_IMPL=cmajor` sends the trainer's no-grad UNet
-forwards through the hand-written channel-major conv kernel.
+`--pruning_artifact` parses but is not ported yet: the trainer raises
+`NotImplementedError` naming the ROADMAP.md item. `QEA_CONV_IMPL=cmajor`
+sends the trainer's no-grad UNet forwards through the hand-written
+channel-major conv kernel.
+
+Several processes, one a GPU: `torchrun --nproc_per_node N -m
+qea_ocr_tpu_torch.cli.patch_cli --data_parallel ...` (or
+`--tensor_parallel T`), or the JAX package's variables `QEA_DISTRIBUTED=1
+QEA_COORDINATOR=host:port QEA_NUM_PROCESSES=N QEA_PROCESS_ID=r` in each
+process. `main` makes the process group (`parallel.multihost.
+maybe_init_distributed`: NCCL for `--device cuda`, Gloo for `cpu`) before
+the trainer is built, and keeps it.
 """
 
 from __future__ import annotations
@@ -115,15 +123,17 @@ def build_parser() -> argparse.ArgumentParser:
                         "--no-async_ocr restores reference-exact synchronous "
                         "querying)")
     p.add_argument("--data_parallel", action="store_true",
-                   help="shard document batches over all devices")
+                   help="shard document batches over the processes of the "
+                        "process group, one GPU each")
     p.add_argument("--lstm_hidden", type=int, default=256,
                    help="CRNN BiLSTM hidden size (reference fixes 256)")
     p.add_argument("--unet_features", type=int, default=32,
                    help="UNet level-1 feature count (reference fixes 32)")
     p.add_argument("--tensor_parallel", type=int, default=0,
-                   help="model-axis shards of a 2-D (data x model) mesh: "
-                        "params + optimizer moments feature-sharded, batch "
-                        "sharded over the data axis")
+                   help="model-axis size T of a 2-D (data x model) mesh "
+                        "over the processes: params + optimizer moments "
+                        "stored sharded over T processes, batch sharded "
+                        "over the data axis")
     p.add_argument("--device", default="cuda",
                    help="torch device (cuda, cuda:N or cpu); a missing GPU "
                         "is an error, not a fallback")
@@ -172,18 +182,25 @@ def config_from_args(args):
 
 
 def main(argv=None):
+    """Train as the flags say; returns the trainer (its models, tables,
+    query ledger and the losses of every step)."""
+    from qea_ocr_tpu_torch.parallel.multihost import (
+        maybe_init_distributed, process_shard)
     from qea_ocr_tpu_torch.train.patch_trainer import TrainNNPrep
 
     args = build_parser().parse_args(argv)
     print("Training Arguments")
     print(args)
+    maybe_init_distributed(args.device)
     cfg = config_from_args(args)
     trainer = TrainNNPrep(cfg)
     start = datetime.datetime.now()
     trainer.train()
     end = datetime.datetime.now()
-    with open(os.path.join(args.exp_base_path, "params.txt"), "w") as f:
-        f.write(f"{start}\n{args}\n{end}\n")
+    if process_shard()[0] == 0:
+        with open(os.path.join(args.exp_base_path, "params.txt"), "w") as f:
+            f.write(f"{start}\n{args}\n{end}\n")
+    return trainer
 
 
 if __name__ == "__main__":

@@ -4,8 +4,11 @@ plus --dataset synthetic, and `--device`.
 
 Run: python -m qea_ocr_tpu_torch.cli.train_crnn --ocr Fake --dataset synthetic ...
 
-`--data_parallel` parses but is not ported yet: the trainer raises
-`NotImplementedError` naming the ROADMAP.md item.
+`--data_parallel` shards the crop batch over the processes of a
+`torch.distributed` group, one GPU each: `torchrun --nproc_per_node N -m
+qea_ocr_tpu_torch.cli.train_crnn --data_parallel ...`, or the `QEA_*`
+variables of `parallel.multihost.maybe_init_distributed`, which `main`
+calls before the trainer is built.
 """
 
 from __future__ import annotations
@@ -39,8 +42,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--lstm_hidden", type=int, default=256,
                    help="CRNN BiLSTM hidden size (reference fixes 256)")
     p.add_argument("--data_parallel", action="store_true",
-                   help="shard the crop batch over all devices (not ported "
-                        "yet: raises)")
+                   help="shard the crop batch over the processes of the "
+                        "process group, one GPU each")
     p.add_argument("--device", default="cuda",
                    help="torch device (cuda, cuda:N or cpu); a missing GPU "
                         "is an error")
@@ -65,11 +68,13 @@ def config_from_args(args):
 
 
 def main(argv=None):
+    from qea_ocr_tpu_torch.parallel.multihost import maybe_init_distributed
     from qea_ocr_tpu_torch.train.crnn_trainer import TrainCRNN
 
     args = build_parser().parse_args(argv)
     print("Experiment Arguments")
     print(args)
+    maybe_init_distributed(args.device)
     trainer = TrainCRNN(config_from_args(args))
     best_acc, best_epoch = trainer.train()
     print(f"Best val acc {best_acc * 100:.2f} @ epoch {best_epoch}")

@@ -6,8 +6,8 @@ The word batches (`WordBatch`, `collate_words`, `pad_wordbatch`,
 fetch, background prefetch) and `default_num_workers` are the port's own
 copy of `qea_ocr_tpu/data/pipeline.py` (numpy only): crops, documents, boxes
 and labels are assembled on the host into fixed-shape arrays, all raggedness
-resolved at dataset construction. The multi-host sharding waits for its
-slice. `doc_batch_to` and `word_batch_to` move a collated batch onto a torch
+resolved at dataset construction, and `host_shard` cuts a process's rows
+out of every global batch. `doc_batch_to` and `word_batch_to` move a collated batch onto a torch
 device.
 """
 
@@ -170,8 +170,10 @@ def batch_iterator(
     """Shuffled fixed-size batches; optional index subset (pruning /
     image_prop subsampling parity with SubsetRandomSampler usage).
 
-    `host_shard=(process_index, process_count)` is the JAX package's
-    multi-host sharding; it waits for the port's parallel slice and raises.
+    `host_shard=(process_index, process_count)` yields only this process's
+    rows of every global batch (`parallel.multihost.shard_indices_for_host`):
+    the shuffle is the same on every process, `batch_size` is the global
+    batch and each batch holds `batch_size / process_count` rows.
 
     `num_workers > 0` fetches the samples of a batch through a thread pool
     (the counterpart of torch DataLoader workers, `properties.py:34`: PNG
@@ -187,9 +189,12 @@ def batch_iterator(
         rng = np.random.default_rng(seed + epoch)
         indices = rng.permutation(indices)
     if host_shard is not None:
-        raise NotImplementedError(
-            "host_shard: multi-process data sharding is not ported yet "
-            "(ROADMAP.md Queue 1 item 7)")
+        from qea_ocr_tpu_torch.parallel.multihost import (
+            shard_indices_for_host)
+        pi, pc = host_shard
+        indices = shard_indices_for_host(indices, batch_size, pi, pc)
+        batch_size //= pc
+        drop_last = True  # lockstep across hosts; shard already windowed
     n = len(indices)
     end = n - (n % batch_size) if drop_last else n
 

@@ -56,6 +56,8 @@ from torch import nn
 from qea_ocr_tpu_torch.ops.conv_cmajor import (
     conv_flat, conv_flat_bn_relu, pad_flat, unflat)
 from qea_ocr_tpu_torch.ops.cuda.conv_cmajor_cuda import grid_fits
+from qea_ocr_tpu_torch.parallel.multihost import (
+    current_group, global_numel, global_sum_grad)
 
 
 def reset_parameters(model: nn.Module, generator: torch.Generator) -> None:
@@ -78,10 +80,16 @@ def batch_norm(bn: nn.BatchNorm2d, x: torch.Tensor) -> torch.Tensor:
     In train mode the batch's own statistics normalise, and the running
     statistics move by flax's rule, `new = (1 - momentum) * old + momentum *
     batch` with the *biased* batch variance (torch's module would store the
-    unbiased one). The buffers are updated in place."""
+    unbiased one). The buffers are updated in place.
+
+    Inside `multihost.data_group` the batch is the global one: the mean and
+    then the variance are sums over every rank's rows, all-reduced through
+    autograd (`global_batch_norm`)."""
     xf = x.float()
     if not bn.training:
         return bn(xf).to(x.dtype)
+    if current_group() is not None:
+        return global_batch_norm(bn, xf).to(x.dtype)
     # momentum 1 on scratch buffers leaves the batch's mean and its unbiased
     # variance in them
     mean = torch.zeros_like(bn.running_mean)
@@ -95,6 +103,33 @@ def batch_norm(bn: nn.BatchNorm2d, x: torch.Tensor) -> torch.Tensor:
             var, alpha=bn.momentum * (n - 1) / n)
         bn.num_batches_tracked += 1
     return out.to(x.dtype)
+
+
+def _move_running(bn: nn.BatchNorm2d, mean: torch.Tensor,
+                  var: torch.Tensor) -> None:
+    """flax's running-statistics rule with the biased batch variance."""
+    with torch.no_grad():
+        bn.running_mean.mul_(1 - bn.momentum).add_(mean, alpha=bn.momentum)
+        bn.running_var.mul_(1 - bn.momentum).add_(var, alpha=bn.momentum)
+        bn.num_batches_tracked += 1
+
+
+def global_batch_norm(bn: nn.BatchNorm2d, xf: torch.Tensor) -> torch.Tensor:
+    """Train-mode `bn` on float32 `xf` (B, C, ...) with the statistics of
+    the global batch of the current data group: the per-channel sum
+    all-reduced for the mean, then the sum of squared deviations for the
+    biased variance (two passes, as `F.batch_norm` is accurate to), both
+    through `global_sum_grad`, so the backward runs through them. The
+    running statistics move identically on every rank."""
+    dims = [0, *range(2, xf.dim())]
+    n = global_numel(xf.numel() // xf.shape[1])
+    mean = global_sum_grad(xf.sum(dim=dims)) / n
+    shape = (1, -1) + (1,) * (xf.dim() - 2)
+    dev = xf - mean.reshape(shape)
+    var = global_sum_grad((dev * dev).sum(dim=dims)) / n
+    _move_running(bn, mean.detach(), var.detach())
+    return (dev * torch.rsqrt(var + bn.eps).reshape(shape)
+            * bn.weight.reshape(shape) + bn.bias.reshape(shape))
 
 
 def conv(layer: nn.Conv2d | nn.ConvTranspose2d, x: torch.Tensor,
@@ -142,21 +177,19 @@ def flat_batch_norm(bn: nn.BatchNorm2d, xf: torch.Tensor | None, height: int,
     batch statistics, without a mask pass. The result's halo rows hold
     `add` (not zeros): a don't-care for the next flat conv, but any other
     consumer must go through `unflat`. In train mode the running statistics
-    move by flax's rule with the biased batch variance, in place. With
+    move by flax's rule with the biased batch variance, in place; inside
+    `multihost.data_group` the sums are over the global batch. With
     `fold` (eval mode only) nothing is applied: the float32 `(mul, add)` are
     returned for the conv epilogue."""
     if bn.training:
         if fold:
             raise ValueError("fold needs running statistics (eval mode)")
-        n = xf.shape[0] * height * width          # real elements a channel
         xs = xf.float()
-        mean = xs.sum(dim=(0, 2)) / n
-        var = (xs * xs).sum(dim=(0, 2)) / n - mean * mean
-        with torch.no_grad():
-            bn.running_mean.mul_(1 - bn.momentum).add_(
-                mean, alpha=bn.momentum)
-            bn.running_var.mul_(1 - bn.momentum).add_(var, alpha=bn.momentum)
-            bn.num_batches_tracked += 1
+        # real elements a channel, of the global batch in a data group
+        n = global_numel(xf.shape[0] * height * width)
+        mean = global_sum_grad(xs.sum(dim=(0, 2))) / n
+        var = global_sum_grad((xs * xs).sum(dim=(0, 2))) / n - mean * mean
+        _move_running(bn, mean.detach(), var.detach())
     else:
         mean, var = bn.running_mean, bn.running_var
     mul = bn.weight * torch.rsqrt(var + bn.eps)

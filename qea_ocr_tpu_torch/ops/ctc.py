@@ -15,6 +15,7 @@ from __future__ import annotations
 import torch
 
 from qea_ocr_tpu_torch.ops.cuda import ctc_cuda
+from qea_ocr_tpu_torch.parallel.multihost import global_count, global_mean
 
 
 def ctc_loss_samplewise(scores: torch.Tensor, labels: torch.Tensor,
@@ -37,14 +38,16 @@ def ctc_loss_mean(scores: torch.Tensor, labels: torch.Tensor,
                   blank_id: int = 0,
                   sample_mask: torch.Tensor | None = None) -> torch.Tensor:
     """torch `CTCLoss(reduction='mean')` normalisation: the mean over the
-    batch of `nll_b / max(1, len_b)`, restricted to `sample_mask` if given."""
+    batch of `nll_b / max(1, len_b)`, restricted to `sample_mask` if given.
+    Inside `multihost.data_group` the count is the global batch's, so the
+    result is this rank's share of the global mean."""
     per_seq = ctc_loss_samplewise(scores, labels, label_lengths,
                                   pad_id=pad_id, blank_id=blank_id)
     normed = per_seq / label_lengths.float().clamp(min=1.0)
     if sample_mask is None:
-        return normed.mean()
+        return global_mean(normed)
     m = sample_mask.float()
-    return (normed * m).sum() / m.sum().clamp(min=1.0)
+    return (normed * m).sum() / global_count(m.sum()).clamp(min=1.0)
 
 
 def greedy_decode(scores: torch.Tensor, *, pad_id: int,

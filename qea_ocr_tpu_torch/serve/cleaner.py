@@ -12,6 +12,13 @@ Weights come from a reference-schema state_dict: a checkpoint of the port's
 trainers, the file `qea_ocr_tpu.tools.export_torch.export_prep` writes, or a
 reference `Prep_model_*` pickle converted by the port's
 `tools/import_torch.py`.
+
+Data-parallel serving (`data_parallel=True`, JAX `serve/cleaner.py:63-85`),
+one process a GPU under a `torch.distributed` group: the batch size rounds
+up to a multiple of the world size, and rank r cleans rows [r*B/w,
+(r+1)*B/w) of every global batch. `clean_dir` writes each rank's own files
+(together the single-process run's set, byte for byte); `clean_arrays`
+gathers every rank's rows, so each rank returns the whole list.
 """
 
 from __future__ import annotations
@@ -28,6 +35,8 @@ import torch
 from qea_ocr_tpu_torch import config as C
 from qea_ocr_tpu_torch.data.datasets import find_images, load_gray
 from qea_ocr_tpu_torch.models.unet import UNet
+from qea_ocr_tpu_torch.parallel.multihost import (
+    all_gather_objects, process_shard, process_sum, rank_device)
 from qea_ocr_tpu_torch.tools.convert import load_state_dict_file
 from qea_ocr_tpu_torch.utils.device import resolve_device
 
@@ -77,14 +86,18 @@ class DocumentCleaner:
                  state_dict: Optional[Mapping[str, torch.Tensor]] = None, *,
                  device: str | torch.device, batch_size: int = 8,
                  doc_size: Tuple[int, int] = C.DOC_SIZE,
-                 unet_features: int = 32):
+                 unet_features: int = 32, data_parallel: bool = False):
         if (prep_path is None) == (state_dict is None):
             raise ValueError("give exactly one of prep_path and state_dict")
         if state_dict is None:
             state_dict = load_state_dict_file(prep_path)
-        self.device = resolve_device(device)
+        self.device = resolve_device(rank_device(device))
         self.doc_size = tuple(doc_size)
         self.batch_size = int(batch_size)
+        self._rank, self._world = process_shard() if data_parallel else (0, 1)
+        # every rank always has rows: tail batches are white-padded anyway
+        self.batch_size = -(-self.batch_size // self._world) * self._world
+        self._local = self.batch_size // self._world
         self.model = UNet(init_features=unet_features)
         self.model.load_state_dict(state_dict, strict=True)
         self.model.to(self.device).eval()
@@ -110,19 +123,25 @@ class DocumentCleaner:
         if batch:
             yield batch, geoms
 
-    def _dispatch(self, batch: List[np.ndarray]) -> torch.Tensor:
+    def _dispatch(self, batch: List[np.ndarray], size: int | None = None
+                  ) -> torch.Tensor:
         """Quantise the float canvases to uint8 on the host, pad the batch
-        to the fixed batch size with white, and queue the forward. Returns
-        the first len(batch) cleaned documents, still on the device."""
+        to `size` rows (the fixed batch size) with white, and queue the
+        forward. Returns the first len(batch) cleaned documents, still on
+        the device."""
         n = len(batch)
-        arr = np.round(np.stack(batch)[:, None] * 255.0).clip(0, 255) \
-                .astype(np.uint8)                         # (n, 1, H, W)
-        if n < self.batch_size:
-            arr = np.concatenate(
-                [arr, np.full((self.batch_size - n, 1, *self.doc_size),
-                              255, np.uint8)])
+        size = self.batch_size if size is None else size
+        arr = np.full((size, 1, *self.doc_size), 255, np.uint8)
+        if n:
+            arr[:n] = np.round(np.stack(batch)[:, None] * 255.0).clip(
+                0, 255).astype(np.uint8)
         images = torch.from_numpy(arr).to(self.device)
         return self._forward(images)[:n]
+
+    def _my_rows(self, n: int) -> slice:
+        """This rank's rows of a global batch of `n` documents."""
+        lo = min(n, self._rank * self._local)
+        return slice(lo, min(n, lo + self._local))
 
     @staticmethod
     def _crop(cleaned: np.ndarray, geoms: List[_Geometry]) -> List[np.ndarray]:
@@ -136,8 +155,15 @@ class DocumentCleaner:
         stay shrunk)."""
         out: List[np.ndarray] = []
         for batch, geoms in self._batches(iter(images)):
-            cleaned = self._dispatch(batch).cpu().numpy()
-            out.extend(self._crop(cleaned, geoms))
+            if self._world == 1:
+                cleaned = self._dispatch(batch).cpu().numpy()
+                out.extend(self._crop(cleaned, geoms))
+                continue
+            # this rank's rows, then every rank's crops in rank order
+            rows = self._my_rows(len(batch))
+            mine = self._dispatch(batch[rows], self._local).cpu().numpy()
+            for part in all_gather_objects(self._crop(mine, geoms[rows])):
+                out.extend(part)
         return out
 
     def clean_arrays(self, images: Sequence[np.ndarray]) -> List[np.ndarray]:
@@ -155,6 +181,13 @@ class DocumentCleaner:
         `transcripts_path`, written there as JSON."""
         paths = find_images(input_dir, exts=exts)
         os.makedirs(output_dir, exist_ok=True)
+        size = self.batch_size
+        if self._world > 1:
+            # this rank's share of every global batch
+            paths = [p for i in range(0, len(paths), size)
+                     for p in paths[i:i + size][self._my_rows(
+                         len(paths[i:i + size]))]]
+            size = self._local
         transcripts: dict = {}
         n_done = 0
 
@@ -174,17 +207,22 @@ class DocumentCleaner:
 
         pending = None  # (device result, geometries, paths) awaiting fetch
         with ThreadPoolExecutor(max_workers=4) as pool:
-            for i in range(0, len(paths), self.batch_size):
-                chunk = paths[i:i + self.batch_size]
+            for i in range(0, len(paths), size):
+                chunk = paths[i:i + size]
                 fitted = [self._fit(load_gray(p)) for p in chunk]
-                dev = self._dispatch([c for c, _ in fitted])
+                dev = self._dispatch([c for c, _ in fitted], size)
                 if pending is not None:
                     n_done += finish(pending)
                 pending = (dev, [g for _, g in fitted], chunk)
             if pending is not None:
                 n_done += finish(pending)
 
-        if ocr is not None and transcripts_path:
+        if self._world > 1:
+            n_done = int(process_sum([n_done])[0])
+            if ocr is not None:
+                transcripts = {k: v for part in all_gather_objects(
+                    transcripts) for k, v in part.items()}
+        if ocr is not None and transcripts_path and self._rank == 0:
             with open(transcripts_path, "w") as f:
                 json.dump(transcripts, f, indent=1)
         result = {"num_documents": n_done, "output_dir": output_dir,

@@ -12,7 +12,8 @@ sparsity.
     rows. Depth i pairs with weight column i: column 0 is the constant 1.0
     of the freshly appended OCR label, history slot j carries w(h_{j-1}),
     and the last generated column goes unused.
-Depths with no valid samples contribute 0.
+Depths with no valid samples contribute 0. Inside `multihost.data_group`
+the valid rows of a depth are counted over the global batch.
 """
 
 from __future__ import annotations
@@ -20,6 +21,7 @@ from __future__ import annotations
 import torch
 
 from qea_ocr_tpu_torch.ops.ctc import ctc_loss_samplewise
+from qea_ocr_tpu_torch.parallel.multihost import global_count
 
 
 def weighted_ctc_loss(scores: torch.Tensor, hist_labels: torch.Tensor,
@@ -37,7 +39,8 @@ def weighted_ctc_loss(scores: torch.Tensor, hist_labels: torch.Tensor,
         hist_lengths.reshape(B * W), pad_id=pad_id, blank_id=blank_id
     ).reshape(B, W)
     validf = hist_valid.float()
-    denom = validf.sum(dim=0).clamp(min=1.0)                      # (W,)
+    # valid rows a depth, of the global batch inside a data group
+    denom = global_count(validf.sum(dim=0)).clamp(min=1.0)        # (W,)
     if decaying:
         per = per / hist_lengths.float().clamp(min=1.0)
         per_depth = (per * validf).sum(dim=0) / denom

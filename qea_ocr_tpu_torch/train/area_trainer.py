@@ -18,8 +18,18 @@ CUDA device the CTC losses go through the hand-written alpha and beta
 kernels: phase A's history CTC over B*W rows and each jitter copy's, phase
 B's, and validation's (forward only).
 
-Not ported yet, each raising `NotImplementedError`: `data_parallel` and
-multi-process runs (ROADMAP.md Queue 1 item 7) and `optuna_trial` (item 8).
+Data parallelism (`data_parallel`, JAX `area_trainer.py:303-382`), one
+process a GPU under a `torch.distributed` group: `batch_size` is the global
+batch; each rank owns a pinned subset of the crops, loads, selects for and
+OCRs only its `batch_size / world` rows a step, and the steps compute over
+the global batch (global counts and batch statistics, summed gradients,
+every rank's rows in the replicated tables). The query ledger is summed
+over ranks, validation windows are split per rank with global metrics, rank
+0 writes the metrics, images and checkpoints, each rank its own side JSONs
+(`.pN`). Without a group it is a world of one.
+
+Not ported yet, raising `NotImplementedError`: `optuna_trial` (ROADMAP.md
+Queue 1 item 8).
 """
 
 from __future__ import annotations
@@ -33,13 +43,14 @@ from typing import Dict, List, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 from torch import nn
 
 from qea_ocr_tpu_torch import config as C
 from qea_ocr_tpu_torch.data.datasets import ImgDataset, SyntheticWordDataset
 from qea_ocr_tpu_torch.data.pipeline import (
-    WordBatch, batch_iterator, collate_words, default_num_workers,
-    pad_wordbatch)
+    WordBatch, batch_iterator, blank_wordbatch, collate_words,
+    default_num_workers, pad_wordbatch)
 from qea_ocr_tpu_torch.models.attention import HistoryAttention
 from qea_ocr_tpu_torch.models.crnn import CRNN
 from qea_ocr_tpu_torch.models.unet import UNet
@@ -50,6 +61,10 @@ from qea_ocr_tpu_torch.ops.edit_distance import (
     cer_from_labels, compare_labels_device)
 from qea_ocr_tpu_torch.ops.entropy import mean_sequence_entropy
 from qea_ocr_tpu_torch.ops.transforms import host_jitter
+from qea_ocr_tpu_torch.parallel.mesh import make_mesh, put_replicated
+from qea_ocr_tpu_torch.parallel.multihost import (
+    gather_rows, global_count, global_mean, in_data_group, pinned_subset,
+    process_shard, process_sum, rank_device, reported)
 from qea_ocr_tpu_torch.selection import (
     GLOBAL_METHODS, is_global, membership_mask, select_batch)
 from qea_ocr_tpu_torch.tracking import (
@@ -106,7 +121,8 @@ class AreaTrainerConfig:
     # (`train_nn_area.py:161,316`); an opt-in against late-run
     # co-adaptation drift, as in the JAX package
     lr_scheduler_prep: Optional[str] = None
-    data_parallel: bool = False  # not ported yet (ROADMAP Queue 1 item 7)
+    data_parallel: bool = False  # shard the crop batch over the ranks of
+                                 # the process group (module docstring)
     prep_ema: float = 0.0     # >0: validate and checkpoint an exponential
                               # moving average of the prep parameters
                               # (decay = this value, updated after every
@@ -129,13 +145,17 @@ class AreaTrainerConfig:
 def make_area_steps(prep_model: nn.Module, crnn_model: nn.Module, charmap, *,
                     prep_optimizer: torch.optim.Optimizer | None = None,
                     crnn_optimizer: torch.optim.Optimizer | None = None,
-                    sec_loss_scalar: float = 1.0) -> SimpleNamespace:
+                    sec_loss_scalar: float = 1.0,
+                    group=None) -> SimpleNamespace:
     """The area path's step functions over `prep_model` (UNet) and
     `crnn_model`. As in `patch_steps.make_steps`, where the JAX functions
     take and return states these update the models, their optimizers and
     the tables in place and return the remaining values in the JAX order;
     every function leaves each model's train/eval mode as it found it.
-    `prep_pretrain_step` is the patch trainer's (MSE(prep(x), x))."""
+    `prep_pretrain_step` is the patch trainer's (MSE(prep(x), x)). With a
+    process `group` each function is one step over the global batch of the
+    group's ranks, as there: global counts and batch statistics, summed
+    gradients, every rank's rows in the tables, global losses returned."""
     pad_id = charmap.pad_id
     max_len = charmap.max_len
 
@@ -164,7 +184,7 @@ def make_area_steps(prep_model: nn.Module, crnn_model: nn.Module, charmap, *,
             scores = crnn_model(img_out)
             loss = (ctc_loss_mean(scores, gt_labels, gt_lengths,
                                   pad_id=pad_id)
-                    + ((img_out - 1.0) ** 2).mean() * sec_loss_scalar)
+                    + global_mean((img_out - 1.0) ** 2) * sec_loss_scalar)
             optimizer_step(loss, *pairs)
         with torch.no_grad():
             scores = scores.detach()
@@ -172,10 +192,12 @@ def make_area_steps(prep_model: nn.Module, crnn_model: nn.Module, charmap, *,
             cers = cer_from_labels(dec[:, :max_len],
                                    dec_len.clamp(max=max_len), gt_labels,
                                    gt_lengths)
-            ids = strip_ids.long()
-            cer_table[ids] = cers.to(cer_table.dtype)
-            ent_table[ids] = mean_sequence_entropy(scores).to(ent_table.dtype)
-        return (img_out.detach(), dict(loss=loss.detach(), cers=cers),
+            # every rank writes every rank's rows
+            ids = gather_rows(strip_ids.long())
+            cer_table[ids] = gather_rows(cers).to(cer_table.dtype)
+            ent_table[ids] = gather_rows(
+                mean_sequence_entropy(scores)).to(ent_table.dtype)
+        return (img_out.detach(), dict(loss=reported(loss), cers=cers),
                 cer_table, ent_table)
 
     @torch.no_grad()
@@ -191,16 +213,18 @@ def make_area_steps(prep_model: nn.Module, crnn_model: nn.Module, charmap, *,
                              sample_mask=sample_mask)
         m = sample_mask.float()
         per_mse = ((img_out - 1.0) ** 2).mean(dim=(1, 2, 3))
-        loss = loss + ((per_mse * m).sum() / m.sum().clamp(min=1.0)
+        loss = loss + ((per_mse * m).sum()
+                       / global_count(m.sum()).clamp(min=1.0)
                        ) * sec_loss_scalar
         dec, dec_len = greedy_decode(scores, pad_id=pad_id)
-        return img_out, dec, dec_len, loss
+        return img_out, dec, dec_len, reported(loss)
 
     pretrain = make_steps(prep_model, crnn_model, charmap,
-                          prep_optimizer=prep_optimizer).prep_pretrain_step
-    return SimpleNamespace(prep_forward=prep_forward, phase_b=phase_b,
+                          prep_optimizer=prep_optimizer,
+                          group=group).prep_pretrain_step
+    return SimpleNamespace(prep_forward=prep_forward, phase_b=in_data_group(group, phase_b),
                            prep_pretrain_step=pretrain,
-                           val_forward=val_forward)
+                           val_forward=in_data_group(group, val_forward))
 
 
 class TrainNNPrepArea:
@@ -208,12 +232,23 @@ class TrainNNPrepArea:
 
     def __init__(self, cfg: AreaTrainerConfig):
         self.cfg = cfg
-        for flag, item in (("data_parallel", 7), ("optuna_trial", 8)):
-            if getattr(cfg, flag):
-                raise NotImplementedError(
-                    f"{flag} is not ported to qea_ocr_tpu_torch yet "
-                    f"(ROADMAP.md Queue 1 item {item})")
-        self.device = resolve_device(cfg.device)
+        if cfg.optuna_trial:
+            raise NotImplementedError(
+                "optuna_trial is not ported to qea_ocr_tpu_torch yet "
+                "(ROADMAP.md Queue 1 item 8)")
+        self.device = resolve_device(rank_device(cfg.device))
+        # ----------------------------------------------------- topology
+        self.group = None
+        self._pi, self._pc = 0, 1
+        if cfg.data_parallel:
+            self._pi, self._pc = process_shard()
+            if dist.is_initialized():
+                self.group = dist.group.WORLD
+            if cfg.batch_size % self._pc:
+                raise ValueError(
+                    f"batch_size={cfg.batch_size} must be a multiple of the "
+                    f"device count {self._pc} for data_parallel mode")
+        self._bl = cfg.batch_size // self._pc     # local crops a step
         self.charmap = CharMap.default()
         self.dirs = ExpDirs(cfg.exp_base_path).create()
         np.random.seed(cfg.random_seed)
@@ -259,6 +294,12 @@ class TrainNNPrepArea:
             load_checkpoint(cfg.prep_model, self.prep_model)
         if cfg.crnn_model:
             load_checkpoint(cfg.crnn_model, self.crnn_model)
+        if self.group is not None:
+            mesh = make_mesh()
+            for obj in (self.prep_model, self.crnn_model):
+                put_replicated(obj, mesh)
+        self._local_train_indices = pinned_subset(
+            np.arange(len(self.train_ds)), self._pi, self._pc)
 
         self.weightgen_method = weightgenerator_factory(cfg.weightgen_method)
         self.history = LabelHistory(len(self.train_ds), cfg.window_size,
@@ -291,13 +332,16 @@ class TrainNNPrepArea:
         # phase A does not care where its strips come from: the patch step's
         self._patch_steps = make_steps(
             self.prep_model, self.crnn_model, self.charmap,
-            crnn_optimizer=self.crnn_optimizer, sec_loss_scalar=cfg.scalar)
+            crnn_optimizer=self.crnn_optimizer, sec_loss_scalar=cfg.scalar,
+            group=self.group)
         self.steps = make_area_steps(
             self.prep_model, self.crnn_model, self.charmap,
             prep_optimizer=self.prep_optimizer,
-            crnn_optimizer=self.crnn_optimizer, sec_loss_scalar=cfg.scalar)
-        self.logger = MetricsLogger(cfg.exp_base_path,
-                                    use_wandb=cfg.use_wandb)
+            crnn_optimizer=self.crnn_optimizer, sec_loss_scalar=cfg.scalar,
+            group=self.group)
+        self.logger = MetricsLogger(
+            cfg.exp_base_path if self._pi == 0 else None,
+            use_wandb=cfg.use_wandb and self._pi == 0)
         self._last_crnn_loss = 0.0
         self.ema_params: Optional[List[torch.Tensor]] = None   # train()
 
@@ -346,9 +390,10 @@ class TrainNNPrepArea:
         for epoch in range(cfg.prep_pretrain_epochs):
             total, n = 0.0, 0
             for batch in batch_iterator(
-                    self.train_ds, cfg.batch_size,
+                    self.train_ds, self._bl,
                     partial(collate_words, charmap=self.charmap),
-                    seed=cfg.random_seed + 7000, epoch=epoch):
+                    seed=cfg.random_seed + 7000, epoch=epoch,
+                    indices=self._local_train_indices):
                 loss = self.steps.prep_pretrain_step(self._dev(batch.images))
                 total += float(loss)
                 n += 1
@@ -416,9 +461,10 @@ class TrainNNPrepArea:
             last_img_out = None
 
             for batch in batch_iterator(
-                    self.train_ds, B,
+                    self.train_ds, self._bl,
                     partial(collate_words, charmap=self.charmap),
                     seed=cfg.random_seed, epoch=epoch,
+                    indices=self._local_train_indices,
                     num_workers=default_num_workers(), prefetch=2):
                 images = self._dev(batch.images)
                 img_preds = self.steps.prep_forward(images)
@@ -426,8 +472,12 @@ class TrainNNPrepArea:
                 sel_rows = np.nonzero(bb_mask)[0]
                 sel_ids = batch.strip_ids[sel_rows]
                 if epoch_print:
+                    # global-bitmap methods select different counts per
+                    # rank: the sum of the ranks' counts
+                    n_sel = int(process_sum([len(sel_rows)])[0]) \
+                        if self.group is not None else len(sel_rows)
                     print(f"Total Samples - {B}")
-                    print(f"OCR Samples - {len(sel_rows)}")
+                    print(f"OCR Samples - {n_sel}")
                     epoch_print = False
                 for r in sel_rows:
                     self.selected_samples.setdefault(
@@ -464,6 +514,9 @@ class TrainNNPrepArea:
             # and the CRNN_loss denominator (train_nn_area.py:257-267,
             # 306-307)
             epoch_bb_calls = self.ocr.epoch_calls
+            if self.group is not None:
+                # the global ledger: each rank queried its own crops only
+                epoch_bb_calls = int(process_sum([epoch_bb_calls])[0])
             total_train_bb_calls += epoch_bb_calls
             val = self._validate()
             metrics_out = {
@@ -483,21 +536,28 @@ class TrainNNPrepArea:
                 "CRNN_OCR_Matching_CER": val["match_cer"],
             }
             self.logger.log(metrics_out)
-            if last_img_out is not None:
+            if last_img_out is not None and self._pi == 0:
                 save_image_png(last_img_out[0].float().cpu().numpy(),
                                os.path.join(self.dirs.img_out,
                                             f"out_{epoch}.png"))
+            # validation's metrics are global sums: the names and the
+            # best-checkpoint condition agree on every rank; the state is
+            # the same on every rank, and rank 0 writes it
             ocr_acc = val["ocr_acc"]
             with self._eval_prep():
-                save_checkpoint(os.path.join(
-                    self.dirs.ckpts, f"Prep_model_{epoch}_{ocr_acc * 100:.2f}"),
-                    self.prep_model, self.prep_optimizer)
-                if ocr_acc > best_val_acc:
+                if self._pi == 0:
+                    save_checkpoint(os.path.join(
+                        self.dirs.ckpts,
+                        f"Prep_model_{epoch}_{ocr_acc * 100:.2f}"),
+                        self.prep_model, self.prep_optimizer)
+                if ocr_acc > best_val_acc and self._pi == 0:
                     save_checkpoint(
                         os.path.join(self.dirs.ckpts, "Prep_model_best"),
                         self.prep_model, self.prep_optimizer)
-            save_checkpoint(os.path.join(self.dirs.ckpts, f"CRNN_model_{epoch}"),
-                            self.crnn_model, self.crnn_optimizer)
+            if self._pi == 0:
+                save_checkpoint(
+                    os.path.join(self.dirs.ckpts, f"CRNN_model_{epoch}"),
+                    self.crnn_model, self.crnn_optimizer)
             if ocr_acc > best_val_acc:
                 best_val_acc, best_val_epoch = ocr_acc, epoch
                 self.logger.update_summary({"best_val_acc": best_val_acc,
@@ -559,21 +619,42 @@ class TrainNNPrepArea:
         """Score every validation crop: the tail batch is padded to the
         batch size and masked (the JAX package's deliberate fix of the
         reference, which drops the tail yet divides by the full set size,
-        `train_nn_area.py:137,347`)."""
+        `train_nn_area.py:137,347`). Over several ranks each window of B
+        crops is split into per-rank slices, an empty slice feeding a blank
+        batch so the ranks step in lockstep; the metrics are global sums."""
         B = self.cfg.batch_size
         agg = dict(crnn_crt=0.0, crnn_cer=0.0, ocr_crt=0.0, ocr_cer=0.0,
                    match_crt=0.0, match_cer=0.0, loss=0.0)
         count = 0
+        collate = partial(collate_words, charmap=self.charmap)
         with self._eval_prep():
-            for batch in batch_iterator(
-                    self.val_ds, B,
-                    partial(collate_words, charmap=self.charmap),
-                    shuffle=False, drop_last=False,
-                    num_workers=default_num_workers(), prefetch=2):
-                real = batch.images.shape[0]
-                batch = pad_wordbatch(batch, B)
-                count += self._validate_batch(batch, np.arange(B) < real,
-                                              agg)
+            if self._pc == 1:
+                for batch in batch_iterator(
+                        self.val_ds, B, collate, shuffle=False,
+                        drop_last=False, num_workers=default_num_workers(),
+                        prefetch=2):
+                    real = batch.images.shape[0]
+                    batch = pad_wordbatch(batch, B)
+                    count += self._validate_batch(batch, np.arange(B) < real,
+                                                  agg)
+            else:
+                Bl = self._bl
+                template = None
+                for start in range(0, len(self.val_ds), B):
+                    window = np.arange(start, min(start + B,
+                                                  len(self.val_ds)))
+                    local_idx = window[self._pi * Bl:(self._pi + 1) * Bl]
+                    samples = [self.val_ds[int(i)] for i in local_idx]
+                    if samples:
+                        batch = pad_wordbatch(collate(samples), Bl)
+                        template = batch
+                    else:
+                        if template is None:
+                            template = pad_wordbatch(
+                                collate([self.val_ds[0]]), Bl)
+                        batch = blank_wordbatch(template, Bl)
+                    count += self._validate_batch(
+                        batch, np.arange(Bl) < len(samples), agg)
         n = max(1, count)
         return dict(
             crnn_acc=agg["crnn_crt"] / n, ocr_acc=agg["ocr_crt"] / n,
@@ -584,7 +665,9 @@ class TrainNNPrepArea:
     def _validate_batch(self, batch: WordBatch, mask: np.ndarray,
                         agg: dict) -> int:
         """Score one validation batch into `agg`; the OCR reads its real
-        rows only (the query count stays exact). Returns the real count."""
+        rows only (the query count stays exact). Returns the real count;
+        over several ranks the batch is this rank's slice and the sums and
+        the count are global."""
         L = self.charmap.max_len
         B = len(mask)
         real = int(mask.sum())
@@ -605,21 +688,34 @@ class TrainNNPrepArea:
             ocr_labels, ocr_lengths, gt, gt_len, mask_dev)
         m_crt, m_cer, _ = compare_labels_device(
             dec_c, dec_l, ocr_labels, ocr_lengths, mask_dev)
-        agg["crnn_crt"] += float(crt); agg["crnn_cer"] += float(cer)
-        agg["ocr_crt"] += float(t_crt); agg["ocr_cer"] += float(t_cer)
-        agg["match_crt"] += float(m_crt); agg["match_cer"] += float(m_cer)
+        sums = torch.stack([x.float() for x in (
+            crt, cer, t_crt, t_cer, m_crt, m_cer, mask_dev.sum())])
+        if self.group is not None:
+            dist.all_reduce(sums, group=self.group)
+        crt, cer, t_crt, t_cer, m_crt, m_cer, real = sums.tolist()
+        agg["crnn_crt"] += crt; agg["crnn_cer"] += cer
+        agg["ocr_crt"] += t_crt; agg["ocr_cer"] += t_cer
+        agg["match_crt"] += m_crt; agg["match_cer"] += m_cer
         # the batch loss is a masked mean over its real crops; x real
         # recovers their sum, so the padded tail carries its own weight
         agg["loss"] += float(loss) * real
-        return real
+        return int(real)
 
     def _save_side_jsons(self, epoch: int):
+        # side-state is the rank's own (crops are pinned to ranks): over
+        # several ranks each writes its shard, suffixed .pN
+        sfx = f".p{self._pi}" if self._pc > 1 else ""
+
+        def path(dirname, name):
+            base, ext = os.path.splitext(name)
+            return os.path.join(dirname, base + sfx + ext)
+
         id_to_name = dict(enumerate(self.train_ds.names))
         for name in (f"tracked_labels_{epoch}.json",
                      "tracked_labels_current.json"):
-            self.history.save_json(
-                os.path.join(self.dirs.tracked_labels, name), id_to_name)
+            self.history.save_json(path(self.dirs.tracked_labels, name),
+                                   id_to_name)
         save_json(self.selected_samples,
-                  os.path.join(self.dirs.selected_samples,
-                               "selected_samples_current.json"))
-        save_json(self.all_cers, os.path.join(self.dirs.cers, "all_cers.json"))
+                  path(self.dirs.selected_samples,
+                       "selected_samples_current.json"))
+        save_json(self.all_cers, path(self.dirs.cers, "all_cers.json"))

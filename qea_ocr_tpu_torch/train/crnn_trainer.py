@@ -14,8 +14,15 @@ backward hook, `model_crnn.py:30-32`; Adam without decay) and one eval step
 boundary is the host OCR call per batch; the loss is read on the host every
 step, as in the JAX package.
 
-Not ported yet: `data_parallel` and multi-process validation (ROADMAP.md
-Queue 1 item 7) raise `NotImplementedError`.
+Data parallelism (`data_parallel`, JAX `crnn_trainer.py:131-170`): under a
+`torch.distributed` process group (`parallel.multihost.
+maybe_init_distributed`) `batch_size` is the global batch; each rank owns a
+pinned subset of the crops, loads and OCRs only its `batch_size / world`
+rows a step, and runs the step over the global batch (global batch
+statistics and loss count, gradients summed); validation windows are split
+the same way, an empty slice feeding a blank batch, and every metric is a
+global sum. Rank 0 writes the metrics and checkpoints. Without a group it
+is a world of one.
 """
 
 from __future__ import annotations
@@ -27,18 +34,23 @@ from typing import Iterable, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from qea_ocr_tpu_torch import config as C
 from qea_ocr_tpu_torch.data.datasets import ImgDataset, SyntheticWordDataset
 from qea_ocr_tpu_torch.data.pipeline import (
-    WordBatch, batch_iterator, collate_words, default_num_workers,
-    pad_wordbatch)
+    WordBatch, batch_iterator, blank_wordbatch, collate_words,
+    default_num_workers, pad_wordbatch)
 from qea_ocr_tpu_torch.models.crnn import CRNN
 from qea_ocr_tpu_torch.ocr.base import get_ocr_helper
 from qea_ocr_tpu_torch.ocr.engine import OcrQueryEngine
 from qea_ocr_tpu_torch.ops.ctc import ctc_loss_mean, greedy_decode
 from qea_ocr_tpu_torch.ops.edit_distance import compare_labels_device
 from qea_ocr_tpu_torch.ops.transforms import host_jitter
+from qea_ocr_tpu_torch.parallel.mesh import make_mesh, put_replicated
+from qea_ocr_tpu_torch.parallel.multihost import (
+    data_group, global_count, pinned_subset, process_shard, process_sum,
+    rank_device, reported, sum_gradients)
 from qea_ocr_tpu_torch.train.state import adam_l2, set_learning_rate, step_lr
 from qea_ocr_tpu_torch.utils.charmap import CharMap
 from qea_ocr_tpu_torch.utils.device import resolve_device
@@ -71,7 +83,9 @@ class CrnnTrainerConfig:
     synthetic_val_size: int = 64
     corruption: Optional[dict] = None
     log_dir: Optional[str] = None
-    data_parallel: bool = False  # not ported yet (ROADMAP Queue 1 item 7)
+    data_parallel: bool = False  # shard the crop batch over the ranks of
+                                 # the process group (a world of one
+                                 # without a group)
     # the port's addition
     device: str = "cuda"   # torch device; a missing GPU is an error
 
@@ -87,12 +101,20 @@ def scrub_nonfinite(params: Iterable[torch.nn.Parameter]) -> None:
 
 class TrainCRNN:
     def __init__(self, cfg: CrnnTrainerConfig):
-        if cfg.data_parallel:
-            raise NotImplementedError(
-                "data_parallel is not ported to qea_ocr_tpu_torch yet "
-                "(ROADMAP.md Queue 1 item 7)")
         self.cfg = cfg
-        self.device = resolve_device(cfg.device)
+        self.device = resolve_device(rank_device(cfg.device))
+        # ----------------------------------------------------- topology
+        self.group = None
+        self._pi, self._pc = 0, 1
+        if cfg.data_parallel:
+            self._pi, self._pc = process_shard()
+            if dist.is_initialized():
+                self.group = dist.group.WORLD
+            if cfg.batch_size % self._pc:
+                raise ValueError(
+                    f"batch_size={cfg.batch_size} must be a multiple of the "
+                    f"device count {self._pc} for data_parallel mode")
+        self._bl = cfg.batch_size // self._pc     # local crops a step
         self.charmap = CharMap.default()
         np.random.seed(cfg.random_seed)
         self._np_rng = np.random.default_rng(cfg.random_seed)
@@ -133,8 +155,12 @@ class TrainCRNN:
             # JAX package restores (`load_checkpoint` there without
             # restore_opt)
             load_checkpoint(cfg.ckpt_path, self.model)
+        if self.group is not None:
+            put_replicated(self.model, make_mesh())
+        self._local_train_indices = pinned_subset(
+            np.arange(len(self.train_ds)), self._pi, self._pc)
 
-        self.logger = MetricsLogger(cfg.log_dir)
+        self.logger = MetricsLogger(cfg.log_dir if self._pi == 0 else None)
         self.timer = StepTimer()
 
     def _dev(self, x: np.ndarray) -> torch.Tensor:
@@ -143,33 +169,41 @@ class TrainCRNN:
     # ------------------------------------------------------------------
     def _train_step(self, images: torch.Tensor, labels: torch.Tensor,
                     lengths: torch.Tensor) -> torch.Tensor:
-        """One update on a batch of crops; returns the CTC-mean loss."""
+        """One update on a batch of crops (this rank's rows of the global
+        batch in a data group); returns the CTC-mean loss."""
         cm = self.charmap
         self.model.train()
         self.optimizer.zero_grad(set_to_none=True)
-        scores = self.model(images)
-        loss = ctc_loss_mean(scores, labels, lengths, pad_id=cm.pad_id)
-        loss.backward()
-        scrub_nonfinite(self.model.parameters())
-        self.optimizer.step()
-        return loss.detach()
+        with data_group(self.group):
+            scores = self.model(images)
+            loss = ctc_loss_mean(scores, labels, lengths, pad_id=cm.pad_id)
+            loss.backward()
+            sum_gradients(list(self.model.parameters()))
+            scrub_nonfinite(self.model.parameters())
+            self.optimizer.step()
+            return reported(loss)
 
     @torch.no_grad()
     def _eval_step(self, images: torch.Tensor, labels: torch.Tensor,
                    lengths: torch.Tensor, mask: torch.Tensor):
         """`mask` excludes padding rows (tail batches are padded to the
         batch size so every val sample is scored). Returns the masked loss,
-        the exact-match count, the CER sum and the decodes."""
+        the exact-match count, the CER sum and the decodes; in a data group
+        the loss, count and sum are global, the decodes this rank's."""
         cm = self.charmap
         self.model.eval()
-        scores = self.model(images)
-        loss = ctc_loss_mean(scores, labels, lengths, pad_id=cm.pad_id,
-                             sample_mask=mask)
-        dec, dec_len = greedy_decode(scores, pad_id=cm.pad_id)
-        crt, cer_sum, _ = compare_labels_device(
-            dec[:, : cm.max_len], dec_len.clamp(max=cm.max_len),
-            labels, lengths, mask)
-        return loss, crt, cer_sum, dec, dec_len
+        with data_group(self.group):
+            scores = self.model(images)
+            loss = ctc_loss_mean(scores, labels, lengths, pad_id=cm.pad_id,
+                                 sample_mask=mask)
+            dec, dec_len = greedy_decode(scores, pad_id=cm.pad_id)
+            crt, cer_sum, _ = compare_labels_device(
+                dec[:, : cm.max_len], dec_len.clamp(max=cm.max_len),
+                labels, lengths, mask)
+            if self.group is not None:
+                crt, cer_sum = global_count(torch.stack([
+                    crt.float(), cer_sum.float()]))
+            return reported(loss), crt, cer_sum, dec, dec_len
 
     # ------------------------------------------------------------------
     def _noise(self, images: np.ndarray) -> np.ndarray:
@@ -198,9 +232,10 @@ class TrainCRNN:
                 step_lr(cfg.lr, epoch, cfg.decay_step, cfg.decay))
             training_loss, steps = 0.0, 0
             for batch in batch_iterator(
-                    self.train_ds, cfg.batch_size,
+                    self.train_ds, self._bl,
                     partial(collate_words, charmap=self.charmap),
                     seed=cfg.random_seed, epoch=epoch,
+                    indices=self._local_train_indices,
                     num_workers=default_num_workers(), prefetch=2):
                 with self.timer.time("noise"):
                     noisy = self._noise(batch.images)
@@ -224,7 +259,9 @@ class TrainCRNN:
                 "lr": step_lr(cfg.lr, epoch, cfg.decay_step, cfg.decay),
             }
             if self.ocr:
-                metrics["Total Black-Box Calls"] = self.ocr.total_calls
+                # the global ledger: each rank queried its own crops only
+                metrics["Total Black-Box Calls"] = int(
+                    process_sum([self.ocr.total_calls])[0])
             self.logger.log(metrics)
 
             if val_acc > best_val_acc:
@@ -238,24 +275,44 @@ class TrainCRNN:
         """Score EVERY val sample: tail batches are padded to the batch size
         and masked (the same deliberate deviation as the JAX package: the
         reference's val loader drops the tail yet divides by the full set
-        size, `train_crnn.py:162-199`)."""
+        size, `train_crnn.py:162-199`). Over several ranks each global
+        window of B crops is split into per-rank slices; an empty slice
+        feeds a blank batch so the ranks step in lockstep, and the metrics
+        are global sums (the same on every rank)."""
         B = self.cfg.batch_size
         agg = dict(loss=0.0, crt=0.0, cer=0.0)
         n = 0
-        for batch in batch_iterator(
-                self.val_ds, B,
-                partial(collate_words, charmap=self.charmap),
-                shuffle=False, drop_last=False):
-            real = batch.images.shape[0]
-            batch = pad_wordbatch(batch, B)
-            mask = np.arange(B) < real
-            n += self._validate_batch(batch, mask, agg)
+        collate = partial(collate_words, charmap=self.charmap)
+        if self._pc == 1:
+            for batch in batch_iterator(self.val_ds, B, collate,
+                                        shuffle=False, drop_last=False):
+                real = batch.images.shape[0]
+                batch = pad_wordbatch(batch, B)
+                mask = np.arange(B) < real
+                n += self._validate_batch(batch, mask, agg)
+        else:
+            Bl = self._bl
+            template = None
+            for start in range(0, len(self.val_ds), B):
+                window = np.arange(start, min(start + B, len(self.val_ds)))
+                local_idx = window[self._pi * Bl:(self._pi + 1) * Bl]
+                samples = [self.val_ds[int(i)] for i in local_idx]
+                if samples:
+                    batch = pad_wordbatch(collate(samples), Bl)
+                    template = batch
+                else:
+                    if template is None:
+                        template = pad_wordbatch(
+                            collate([self.val_ds[0]]), Bl)
+                    batch = blank_wordbatch(template, Bl)
+                mask = np.arange(Bl) < len(samples)
+                n += self._validate_batch(batch, mask, agg)
         return agg["loss"] / max(1, n), agg["crt"], agg["cer"], n
 
     def _validate_batch(self, batch, mask, agg) -> int:
-        """Score one batch into `agg`; returns its real-sample count. The
-        OCR (when configured) sees only the real rows, keeping the
-        black-box query count exact."""
+        """Score one (local) batch into `agg`; returns the global
+        real-sample count. The OCR (when configured) sees only this rank's
+        real rows, keeping the black-box query count exact."""
         real = int(mask.sum())
         B = len(mask)
         labels, lengths = batch.labels, batch.lengths
@@ -272,6 +329,8 @@ class TrainCRNN:
         loss, crt, cer_sum, _, _ = self._eval_step(
             self._dev(batch.images), self._dev(labels), self._dev(lengths),
             self._dev(mask))
+        if self.group is not None:
+            real = int(process_sum([real])[0])
         # masked-mean loss x real recovers the per-sample sum so padded
         # tail windows carry proportional weight in the epoch average
         agg["loss"] += float(loss) * real
@@ -282,6 +341,8 @@ class TrainCRNN:
     def _save(self, epoch: int, acc: float):
         """`{crnn_model_path}_{epoch}_{acc}`: the state_dict, and beside it
         `.optim` with Adam's state."""
+        if self._pi != 0:
+            return      # the state is the same on every rank: rank 0 writes
         path = f"{self.cfg.crnn_model_path}_{epoch}_{acc * 100:.2f}"
         os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
         save_checkpoint(path, self.model, self.optimizer)

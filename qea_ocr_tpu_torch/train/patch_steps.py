@@ -27,6 +27,14 @@ functions take and return `ModelState`s, these update the models'
 parameters and batch statistics, the optimizers' moments, and the CER and
 entropy tables *in place*, and return the remaining values in the JAX
 order. Every function leaves each model's train/eval mode as it found it.
+
+Data parallelism (`make_steps(group=...)`): each rank passes its own rows
+and every function computes what the JAX step computes over the global
+batch (`parallel/multihost.py`): the losses divide by global counts, the
+UNet's train-mode batch norm uses global statistics, the gradients are
+summed over the group before the non-finite entries are zeroed, and the
+tables take every rank's rows. The losses returned are the global ones, the
+same on every rank, as are the parameters, moments and tables after a step.
 """
 
 from __future__ import annotations
@@ -42,6 +50,10 @@ from qea_ocr_tpu_torch.ops.ctc import (
 from qea_ocr_tpu_torch.ops.edit_distance import cer_from_labels
 from qea_ocr_tpu_torch.ops.entropy import mean_sequence_entropy
 from qea_ocr_tpu_torch.ops.text_stack import get_text_stack_batch
+from qea_ocr_tpu_torch.parallel.multihost import (
+    gather_rows, in_data_group, global_count, global_mean, reported,
+    sum_gradients)
+from qea_ocr_tpu_torch.parallel.tp import is_sharded, unsharded
 from qea_ocr_tpu_torch.tracking.loss import weighted_ctc_loss
 from qea_ocr_tpu_torch.train.crnn_trainer import scrub_nonfinite
 
@@ -68,13 +80,21 @@ def model_modes(train: tuple[nn.Module, ...] = (),
 def optimizer_step(loss: torch.Tensor,
                    *pairs: tuple[torch.optim.Optimizer, nn.Module]) -> None:
     """One optimizer step on `loss` for each (optimizer, model) pair, the
-    non-finite gradient entries zeroed first. Gradients are taken for those
-    models' parameters only, so a model left out is a constant of the loss
-    and costs no backward work."""
+    gradients summed over the current data group and then their non-finite
+    entries zeroed. Gradients are taken for those models' parameters only,
+    so a model left out is a constant of the loss and costs no backward
+    work; a model under `fully_shard` reduces its gradients in hooks on its
+    whole parameters, which the backward must reach, so with one the
+    backward runs to every leaf (a model left out then gets gradients that
+    its next step's `zero_grad` drops)."""
     params = [p for _, model in pairs for p in model.parameters()]
     for opt, _ in pairs:
         opt.zero_grad(set_to_none=True)
-    loss.backward(inputs=params)
+    if any(is_sharded(model) for _, model in pairs):
+        loss.backward()
+    else:
+        loss.backward(inputs=params)
+    sum_gradients(params)
     scrub_nonfinite(params)
     for opt, _ in pairs:
         opt.step()
@@ -94,7 +114,8 @@ def make_steps(prep_model: nn.Module, crnn_model: nn.Module, charmap, *,
                h_out: int = 32, w_out: int = 128,
                sec_loss_scalar: float = 1.0,
                phase_a_batch_rows: int = 2048,
-               prep_eval_model: nn.Module | None = None) -> SimpleNamespace:
+               prep_eval_model: nn.Module | None = None,
+               group=None) -> SimpleNamespace:
     """The step functions over `prep_model` (UNet) and `crnn_model`.
 
     `prep_eval_model`, if given, is a twin of `prep_model` over the same
@@ -109,7 +130,13 @@ def make_steps(prep_model: nn.Module, crnn_model: nn.Module, charmap, *,
     (parts x N) for which phase A runs the history strips and all jitter
     copies through one concatenated CRNN call; above it each part is its own
     call, which holds fewer activations at once. The CRNN's batch statistics
-    are frozen there, so the two give the same numbers."""
+    are frozen there, so the two give the same numbers.
+
+    `group` (a `torch.distributed` process group, e.g. `dist.group.WORLD`,
+    or a mesh's data group) makes every function one step over the global
+    batch of the group's ranks (the module docstring); None keeps them
+    single-process. A twin of a model under `fully_shard` reads its whole
+    parameters through `parallel.tp.unsharded`."""
     pad_id = charmap.pad_id
     max_len = charmap.max_len
     if prep_eval_model is None:
@@ -119,6 +146,12 @@ def make_steps(prep_model: nn.Module, crnn_model: nn.Module, charmap, *,
             "prep_eval_model does not hold prep_model's parameter and buffer "
             "tensors: build it with prep_model.twin(...) once prep_model is "
             "on its device")
+
+    def twin_view():
+        """The twin holding `prep_model`'s whole parameters."""
+        if prep_eval_model is prep_model or not is_sharded(prep_model):
+            return contextlib.nullcontext()
+        return unsharded(prep_model, prep_eval_model)
 
     def _optimizer(opt, name):
         if opt is None:
@@ -142,7 +175,8 @@ def make_steps(prep_model: nn.Module, crnn_model: nn.Module, charmap, *,
         per_doc_mse = ((doc_out - 1.0) ** 2).mean(dim=(1, 2, 3))
         per_doc = per_doc_ctc + sec_loss_scalar * per_doc_mse
         doc_mask = strip_mask.any(dim=1).to(per.dtype)
-        return (per_doc * doc_mask).sum() / doc_mask.sum().clamp(min=1.0)
+        return ((per_doc * doc_mask).sum()
+                / global_count(doc_mask.sum()).clamp(min=1.0))
 
     def _extract(images, bboxes, model=prep_model):
         D, S = bboxes.shape[:2]
@@ -156,7 +190,7 @@ def make_steps(prep_model: nn.Module, crnn_model: nn.Module, charmap, *,
         """UNet eval forward + strip gather: (doc_out (D, 1, H, W),
         strips (D*S, 1, h_out, w_out)), no gradient (phase A treats the
         UNet as frozen)."""
-        with model_modes(frozen=(prep_eval_model,)):
+        with twin_view(), model_modes(frozen=(prep_eval_model,)):
             return _extract(images, bboxes, prep_eval_model)
 
     # ------------------------------------------------------------------
@@ -205,7 +239,7 @@ def make_steps(prep_model: nn.Module, crnn_model: nn.Module, charmap, *,
                     part_scores[k + i], jitter_labels[i], jitter_lengths[i],
                     pad_id=pad_id, sample_mask=bb_mask)
             optimizer_step(total, (opt, crnn_model))
-        return total.detach()
+        return reported(total)
 
     # ------------------------------------------------------------------
     def _phase_b_one(images, bboxes, strip_mask, gt_labels, cer_table,
@@ -238,14 +272,15 @@ def make_steps(prep_model: nn.Module, crnn_model: nn.Module, charmap, *,
             ents = mean_sequence_entropy(scores)                     # (N,)
             # a masked row is sent to one slot past the table, which is cut
             # off again: it writes nothing (no stale value, no data-dependent
-            # shape)
-            ids = torch.where(flat_mask, strip_ids.reshape(N).long(),
-                              cer_table.shape[0])
-            for table, values in ((cer_table, cers), (ent_table, ents)):
+            # shape). In a data group every rank writes every rank's rows.
+            ids = gather_rows(torch.where(
+                flat_mask, strip_ids.reshape(N).long(), cer_table.shape[0]))
+            for table, values in ((cer_table, gather_rows(cers)),
+                                  (ent_table, gather_rows(ents))):
                 grown = torch.cat([table, table.new_zeros(1)])
                 grown[ids] = values.to(table.dtype)
                 table.copy_(grown[:-1])
-        metrics = dict(loss=loss.detach(), cers=cers, decoded=dec,
+        metrics = dict(loss=reported(loss), cers=cers, decoded=dec,
                        decoded_len=dec_len)
         return doc_out.detach(), metrics, cer_table, ent_table
 
@@ -338,9 +373,9 @@ def make_steps(prep_model: nn.Module, crnn_model: nn.Module, charmap, *,
         budget loop. Returns the loss."""
         opt = _optimizer(prep_optimizer, "prep")
         with model_modes(train=(prep_model,)):
-            loss = ((prep_model(images) - images) ** 2).mean()
+            loss = global_mean((prep_model(images) - images) ** 2)
             optimizer_step(loss, (opt, prep_model))
-        return loss.detach()
+        return reported(loss)
 
     # ------------------------------------------------------------------
     @torch.no_grad()
@@ -349,13 +384,13 @@ def make_steps(prep_model: nn.Module, crnn_model: nn.Module, charmap, *,
         decoded lengths (N,) int32, loss scalar)."""
         D, S = bboxes.shape[:2]
         N = D * S
-        with model_modes(frozen=(prep_eval_model, crnn_model)):
+        with twin_view(), model_modes(frozen=(prep_eval_model, crnn_model)):
             doc_out, strips = _extract(images, bboxes, prep_eval_model)
             scores = crnn_model(strips)
             loss = _per_doc_loss(scores, gt_labels.reshape(N, max_len),
                                  gt_lengths.reshape(N), strip_mask, doc_out)
             dec, dec_len = greedy_decode(scores, pad_id=pad_id)
-        return doc_out, strips, dec, dec_len, loss
+        return doc_out, strips, dec, dec_len, reported(loss)
 
     @torch.no_grad()
     def entropy_of(strips):
@@ -364,6 +399,7 @@ def make_steps(prep_model: nn.Module, crnn_model: nn.Module, charmap, *,
             return mean_sequence_entropy(crnn_model(strips))
 
     return SimpleNamespace(
-        prep_extract=prep_extract, phase_a=phase_a, phase_b=phase_b,
-        phase_ab=phase_ab, prep_pretrain_step=prep_pretrain_step,
-        val_forward=val_forward, entropy_of=entropy_of)
+        prep_extract=in_data_group(group, prep_extract), phase_a=in_data_group(group, phase_a),
+        phase_b=in_data_group(group, phase_b), phase_ab=in_data_group(group, phase_ab),
+        prep_pretrain_step=in_data_group(group, prep_pretrain_step),
+        val_forward=in_data_group(group, val_forward), entropy_of=entropy_of)

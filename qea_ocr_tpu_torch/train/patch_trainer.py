@@ -30,10 +30,28 @@ library route (`conv_impl="xla"`), and a no-grad twin built with
 hand-written channel-major conv kernel. The twin serves `prep_extract` and
 `val_forward` only.
 
-Not ported yet, each raising `NotImplementedError`: `data_parallel`,
-`tensor_parallel` and multi-process runs (ROADMAP.md Queue 1 item 7),
-`pruning_artifact` and `optuna_trial` (item 8: `pruning/` and `sweeps/`),
-and the real OCR back ends (item 9).
+Parallelism (JAX `patch_trainer.py:308-423`), one process a GPU under a
+`torch.distributed` group (`parallel.multihost.maybe_init_distributed`):
+
+  * `data_parallel`: `batch_docs` is the global batch. Each rank owns a
+    pinned subset of the documents, loads, selects for and OCRs only its
+    `batch_docs / world` documents a step, and the steps compute over the
+    global batch (`make_steps(group=...)`: global counts and batch
+    statistics, summed gradients, every rank's rows in the replicated
+    tables). The query ledger is summed over ranks; validation splits
+    each window of `batch_docs` documents the same way (an empty slice
+    feeds a blank batch) and its metrics are global sums. Rank 0 writes
+    the metrics, images and checkpoints; each rank its own side JSONs
+    (`.pN`). Without a group it is a world of one.
+  * `tensor_parallel=T`: a (world / T) x T mesh (`parallel.tp`); the data
+    shard follows the data index (rank // T), parameters and Adam moments
+    are stored sharded over the T ranks of a model group, and only the
+    first of them queries the OCR, broadcasting the labels to the others:
+    the ledger is that of `T = 0`. Checkpoints are gathered whole.
+
+Not ported yet, each raising `NotImplementedError`: `pruning_artifact` and
+`optuna_trial` (ROADMAP.md Queue 1 item 8: `pruning/` and `sweeps/`) and
+the real OCR back ends (item 9).
 """
 
 from __future__ import annotations
@@ -46,12 +64,13 @@ from typing import Dict, List, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from qea_ocr_tpu_torch import config as C
 from qea_ocr_tpu_torch.data.datasets import PatchDocuments
 from qea_ocr_tpu_torch.data.pipeline import (
-    DocBatch, batch_iterator, collate_docs, default_num_workers,
-    pad_docbatch)
+    DocBatch, batch_iterator, blank_docbatch, collate_docs,
+    default_num_workers, pad_docbatch)
 from qea_ocr_tpu_torch.models.attention import HistoryAttention
 from qea_ocr_tpu_torch.models.crnn import CRNN
 from qea_ocr_tpu_torch.models.unet import UNet
@@ -59,6 +78,14 @@ from qea_ocr_tpu_torch.ocr.base import get_ocr_helper
 from qea_ocr_tpu_torch.ocr.engine import OcrQueryEngine
 from qea_ocr_tpu_torch.ops.edit_distance import compare_labels_device
 from qea_ocr_tpu_torch.ops.transforms import host_jitter
+from qea_ocr_tpu_torch.parallel.mesh import (
+    DATA_AXIS, make_mesh, put_replicated)
+from qea_ocr_tpu_torch.parallel.multihost import (
+    broadcast_object, pinned_subset, process_shard, process_sum,
+    rank_device)
+from qea_ocr_tpu_torch.parallel.tp import (
+    MODEL_AXIS, make_mesh_2d, optimizer_state_whole, put_tp,
+    state_dict_whole)
 from qea_ocr_tpu_torch.selection import (
     GLOBAL_METHODS, is_global, membership_mask, select_batch)
 from qea_ocr_tpu_torch.tracking import (
@@ -70,8 +97,8 @@ from qea_ocr_tpu_torch.train.state import (
 from qea_ocr_tpu_torch.utils.charmap import CharMap
 from qea_ocr_tpu_torch.utils.device import resolve_device
 from qea_ocr_tpu_torch.utils.io import (
-    ExpDirs, load_checkpoint, load_json, save_checkpoint, save_image_png,
-    save_json)
+    ExpDirs, load_checkpoint, load_json, resolve_side_shard, save_checkpoint,
+    save_image_png, save_json)
 from qea_ocr_tpu_torch.utils.metrics import (
     MetricsLogger, StepTimer, maybe_profile)
 
@@ -126,8 +153,10 @@ class PatchTrainerConfig:
                               # reference; identical budget accounting).
                               # False restores reference-exact synchronous
                               # querying.
-    data_parallel: bool = False  # not ported yet (ROADMAP Queue 1 item 7)
-    tensor_parallel: int = 0     # not ported yet (ROADMAP Queue 1 item 7)
+    data_parallel: bool = False  # shard document batches over the ranks of
+                                 # the process group (module docstring)
+    tensor_parallel: int = 0     # T > 0: parameters and moments sharded
+                                 # over model groups of T ranks
     prep_ema: float = 0.0  # >0: keep an exponential moving average of the
                            # prep parameters (decay = this value, updated
                            # after every phase-B step) and use it for
@@ -162,13 +191,12 @@ class TrainNNPrep:
 
     def __init__(self, cfg: PatchTrainerConfig):
         self.cfg = cfg
-        for flag, item in (("data_parallel", 7), ("tensor_parallel", 7),
-                           ("pruning_artifact", 8), ("optuna_trial", 8)):
+        for flag, item in (("pruning_artifact", 8), ("optuna_trial", 8)):
             if getattr(cfg, flag):
                 raise NotImplementedError(
                     f"{flag} is not ported to qea_ocr_tpu_torch yet "
                     f"(ROADMAP.md Queue 1 item {item})")
-        self.device = resolve_device(cfg.device)
+        self.device = resolve_device(rank_device(cfg.device))
         self.charmap = CharMap.default()
         self.dirs = ExpDirs(cfg.exp_base_path).create()
         np.random.seed(cfg.random_seed)
@@ -216,11 +244,13 @@ class TrainNNPrep:
         self.crnn_model = CRNN(
             self.charmap.vocab_size, lstm_hidden=cfg.lstm_hidden,
             generator=torch.Generator().manual_seed(seeds[1])).to(self.device)
-        self.prep_eval_model = self.prep_model.twin("auto")
+        tp = cfg.tensor_parallel
         self.prep_optimizer = adam_l2(self.prep_model.parameters(),
-                                      cfg.lr_prep, cfg.weight_decay)
+                                      cfg.lr_prep, cfg.weight_decay,
+                                      sharded=bool(tp))
         self.crnn_optimizer = adam_l2(self.crnn_model.parameters(),
-                                      cfg.lr_crnn, cfg.weight_decay)
+                                      cfg.lr_crnn, cfg.weight_decay,
+                                      sharded=bool(tp))
         if cfg.prep_model:
             # model-only warm start (fresh optimizer, reference torch.load)
             load_checkpoint(cfg.prep_model, self.prep_model)
@@ -236,14 +266,22 @@ class TrainNNPrep:
             load_checkpoint(cfg.optim_crnn_path, self.crnn_model,
                             self.crnn_optimizer)
             set_learning_rate(self.crnn_optimizer, cfg.lr_crnn)
+        self._place_models()
+        self._dl = cfg.batch_docs // self._pc      # this rank's documents
+        # made once the grad model is placed: it holds the same tensors
+        self.prep_eval_model = self.prep_model.twin("auto")
 
         # ------------------------------------------------- tracking/weights
         self.weightgen_method = weightgenerator_factory(cfg.weightgen_method)
         self.history = LabelHistory(
             self.dataset.num_strips, cfg.window_size, self.charmap)
         if cfg.tracked_labels_path:
-            self.history.load_json(cfg.tracked_labels_path,
-                                   self.dataset.name_to_id)
+            # multi-process runs shard side-state per rank (.pN suffix,
+            # _save_side_jsons); resume prefers this rank's shard, so one
+            # flag value serves every rank
+            self.history.load_json(
+                resolve_side_shard(cfg.tracked_labels_path, self._rank),
+                self.dataset.name_to_id)
         self.attn_model = None
         if cfg.weightgen_method == "self_attention":
             self.attn_model = HistoryAttention(
@@ -276,16 +314,103 @@ class TrainNNPrep:
             prep_optimizer=self.prep_optimizer,
             crnn_optimizer=self.crnn_optimizer,
             sec_loss_scalar=cfg.scalar,
-            prep_eval_model=self.prep_eval_model)
+            prep_eval_model=self.prep_eval_model, group=self.group)
 
-        if cfg.micro_steps > 1 and cfg.batch_docs % cfg.micro_steps:
-            raise ValueError(f"micro_steps={cfg.micro_steps} must divide "
-                             f"batch_docs={cfg.batch_docs}")
+        if cfg.micro_steps > 1:
+            if cfg.batch_docs % cfg.micro_steps:
+                raise ValueError(f"micro_steps={cfg.micro_steps} must divide "
+                                 f"batch_docs={cfg.batch_docs}")
+            # each rank splits its own rows: micro-step g takes chunk g of
+            # every rank, so the chunk must divide over the data axis
+            chunk = cfg.batch_docs // cfg.micro_steps
+            if chunk % self._pc:
+                raise ValueError(
+                    f"micro-step chunk size {chunk} (batch_docs "
+                    f"{cfg.batch_docs} / micro_steps {cfg.micro_steps}) "
+                    f"must be a multiple of the data-axis size {self._pc}")
+        self._local_train_indices = pinned_subset(
+            self.train_indices, self._pi, self._pc)
+        if self._pc > 1:
+            # lockstep trim: every rank owns the same count; the ledger
+            # denominators use the effective global size
+            self.train_set_size = len(self._local_train_indices) * self._pc
 
-        self.logger = MetricsLogger(cfg.exp_base_path,
-                                    use_wandb=cfg.use_wandb)
+        self.logger = MetricsLogger(
+            cfg.exp_base_path if self._rank == 0 else None,
+            use_wandb=cfg.use_wandb and self._rank == 0)
         self.timer = StepTimer()
         self.ema_params: Optional[List[torch.Tensor]] = None  # _train_impl
+        # (phase-B loss, phase-A loss) of every step, as the host read them
+        self.step_losses: List[tuple] = []
+
+    # ------------------------------------------------------------------
+    def _place_models(self):
+        """The topology of the run and the models' placement on it.
+
+        Single-process (neither flag, or no process group under
+        `data_parallel`) nothing moves. Under `data_parallel` every rank
+        takes rank 0's models and optimizer states; under `tensor_parallel`
+        the same, and then parameters and moments are sharded over the
+        model axis (`parallel.tp.put_tp`)."""
+        cfg = self.cfg
+        tp = cfg.tensor_parallel
+        self.group = None           # the data group the steps reduce over
+        self._model_group = None    # tensor parallel: one OCR a model group
+        self._rank, self._world = 0, 1   # global rank and world size
+        self._pi, self._pc = 0, 1        # data index and data-axis size
+        self._queries_ocr = True
+        if not (cfg.data_parallel or tp):
+            return
+        if tp and not dist.is_initialized():
+            raise ValueError(
+                "tensor_parallel needs a process group: run under torchrun "
+                "or with QEA_DISTRIBUTED=1")
+        self._rank, world = process_shard()
+        self._world = world
+        if tp:
+            if world % tp:
+                raise ValueError(f"tensor_parallel={tp} must divide the "
+                                 f"process count {world}")
+            n_data = world // tp
+            if cfg.batch_docs % n_data:
+                raise ValueError(
+                    f"batch_docs={cfg.batch_docs} must be a multiple of the "
+                    f"data-axis size {n_data} (= {world} processes / tp "
+                    f"{tp})")
+            mesh = make_mesh_2d(n_data, tp)
+            self.group = mesh.get_group(DATA_AXIS)
+            self._model_group = mesh.get_group(MODEL_AXIS)
+            self._pi, self._pc = mesh.get_local_rank(DATA_AXIS), n_data
+            self._queries_ocr = mesh.get_local_rank(MODEL_AXIS) == 0
+            axes = (DATA_AXIS, MODEL_AXIS)
+        else:
+            if cfg.batch_docs % world:
+                raise ValueError(
+                    f"batch_docs={cfg.batch_docs} must be a multiple of the "
+                    f"device count {world} for data_parallel mode")
+            if not dist.is_initialized():
+                return
+            mesh = make_mesh()
+            self.group = dist.group.WORLD
+            self._pi, self._pc = self._rank, world
+            axes = (DATA_AXIS,)
+        for axis in axes:
+            for obj in (self.prep_model, self.crnn_model,
+                        self.prep_optimizer, self.crnn_optimizer):
+                put_replicated(obj, mesh, axis)
+        if tp:
+            put_tp(self.prep_model, mesh, self.prep_optimizer)
+            put_tp(self.crnn_model, mesh, self.crnn_optimizer)
+
+    def _write_checkpoint(self, path: str, model, optimizer) -> None:
+        """Rank 0 writes `model` and `optimizer`; under tensor parallelism
+        every rank first takes part in gathering the shards whole, so the
+        checkpoint is the single-process one."""
+        if self.cfg.tensor_parallel:
+            model = state_dict_whole(model)
+            optimizer = optimizer_state_whole(optimizer)
+        if self._rank == 0:
+            save_checkpoint(path, model, optimizer)
 
     # ------------------------------------------------------------------
     def _eval_prep(self):
@@ -297,7 +422,24 @@ class TrainNNPrep:
         return parameters_swapped(self.prep_model, self.ema_params)
 
     def _dev(self, x: np.ndarray) -> torch.Tensor:
+        """This rank's rows (a batch-dimension array) on its device."""
         return torch.from_numpy(np.ascontiguousarray(x)).to(self.device)
+
+    def _ask(self, images: np.ndarray, wait: bool):
+        """Send `images` to the OCR: a result with `wait`, else a future.
+        Under tensor parallelism only the first rank of a model group asks
+        (the others hold the same images); `_resolve` shares the labels."""
+        if not self._queries_ocr:
+            return None
+        return self.ocr.query(images) if wait else self.ocr.submit(images)
+
+    def _resolve(self, res_or_future):
+        """The OCR's result of an `_ask`, on every rank of a model group."""
+        res = (res_or_future.result()
+               if hasattr(res_or_future, "result") else res_or_future)
+        if self._model_group is not None:
+            res = broadcast_object(res, self._model_group)
+        return res
 
     # ------------------------------------------------------------------
     def _training_indices(self) -> np.ndarray:
@@ -365,9 +507,9 @@ class TrainNNPrep:
         for epoch in range(cfg.prep_pretrain_epochs):
             total, n = 0.0, 0
             for batch in batch_iterator(
-                    self.dataset, cfg.batch_docs, collate_docs,
+                    self.dataset, self._dl, collate_docs,
                     seed=cfg.random_seed + 7000, epoch=epoch,
-                    indices=self.train_indices):
+                    indices=self._local_train_indices):
                 loss = self.steps.prep_pretrain_step(self._dev(batch.images))
                 total += float(loss)
                 n += 1
@@ -397,8 +539,10 @@ class TrainNNPrep:
         for epoch in range(cfg.start_epoch, cfg.epochs):
             if is_global(cfg.minibatch_subset):
                 self._global_select(epoch)
-            indices = self.train_indices
+            indices = self._local_train_indices
             if cfg.image_prop:
+                # a per-rank subsample of the pinned subset: the global
+                # proportion holds, and so does lockstep (equal subsets)
                 k = int(cfg.image_prop * len(indices))
                 indices = self._np_rng.permutation(indices)[:k]
             self.ocr.reset_epoch()
@@ -417,8 +561,8 @@ class TrainNNPrep:
 
             pending = None
             for batch in batch_iterator(
-                    self.dataset, D, collate_docs, seed=cfg.random_seed,
-                    epoch=epoch, indices=indices,
+                    self.dataset, self._dl, collate_docs,
+                    seed=cfg.random_seed, epoch=epoch, indices=indices,
                     num_workers=default_num_workers(), prefetch=2):
                 work = self._prepare_work(batch, epoch, n_jitter, epoch_print)
                 epoch_print = False
@@ -441,6 +585,9 @@ class TrainNNPrep:
             # the reference keeps "Black-Box Calls" train-only
             # (`train_nn_patch.py:298-299,411`)
             epoch_bb_calls = self.ocr.epoch_calls
+            if self._world > 1:
+                # the global ledger: each rank queried its own documents
+                epoch_bb_calls = int(process_sum([epoch_bb_calls])[0])
             print(f"Epoch BB calls - {epoch_bb_calls}")
             val = self._validate()
             total_train_bb_calls += epoch_bb_calls
@@ -475,8 +622,8 @@ class TrainNNPrep:
             metrics_out["time/epoch_s"] = time.perf_counter() - epoch_t0
             self.logger.log(metrics_out)
 
-            # sample cleaned image (+ original once)
-            if totals["doc_out"] is not None:
+            # sample cleaned image (+ original once), by rank 0
+            if totals["doc_out"] is not None and self._rank == 0:
                 save_image_png(
                     totals["doc_out"][0].float().cpu().numpy(),
                     os.path.join(self.dirs.img_out, f"out_{epoch}.png"))
@@ -485,17 +632,19 @@ class TrainNNPrep:
                         totals["batch"].images[0],
                         os.path.join(self.dirs.img_out, "out_original.png"))
 
+            # validation's metrics are global sums, so the names and the
+            # best-checkpoint condition agree on every rank
             ocr_acc = val["ocr_acc"]
             with self._eval_prep():
-                save_checkpoint(os.path.join(
+                self._write_checkpoint(os.path.join(
                     self.dirs.ckpts,
                     f"Prep_model_{epoch}_{ocr_acc * 100:.2f}"),
                     self.prep_model, self.prep_optimizer)
                 if ocr_acc > best_val_acc:
-                    save_checkpoint(
+                    self._write_checkpoint(
                         os.path.join(self.dirs.ckpts, "Prep_model_best"),
                         self.prep_model, self.prep_optimizer)
-            save_checkpoint(
+            self._write_checkpoint(
                 os.path.join(self.dirs.ckpts, f"CRNN_model_{epoch}"),
                 self.crnn_model, self.crnn_optimizer)
             if ocr_acc > best_val_acc:
@@ -540,20 +689,15 @@ class TrainNNPrep:
         if cfg.inner_limit and len(sel_rows):
             # gather on the device, fetch only the selected strips
             sel_strips = strips[self._dev(sel_rows)].float().cpu().numpy()
-            ask = self.ocr.submit if cfg.async_ocr else self.ocr.query
+            wait = not cfg.async_ocr
             if cfg.inner_limit_skip:
                 with self.timer.time("ocr_issue"):
-                    work["clean"] = ask(sel_strips)
+                    work["clean"] = self._ask(sel_strips, wait)
             for _ in range(n_jitter):
                 noisy = self._noise(sel_strips)
                 with self.timer.time("ocr_issue"):
-                    work["jitter"].append((noisy, ask(noisy)))
+                    work["jitter"].append((noisy, self._ask(noisy, wait)))
         return work
-
-    @staticmethod
-    def _resolve(res_or_future):
-        return (res_or_future.result()
-                if hasattr(res_or_future, "result") else res_or_future)
 
     def _process_work(self, work: dict, n_jitter: int, L: int,
                       W: int) -> dict:
@@ -577,7 +721,9 @@ class TrainNNPrep:
             hist_labels = np.full((n, W, L), self.charmap.pad_id, np.int32)
             hist_lengths = np.zeros((n, W), np.int32)
             hist_valid = np.zeros((n, W), bool)
-            if cfg.inner_limit_skip and work["clean"] is not None:
+            # asked for a clean read when any strip was selected (under
+            # tensor parallelism only one rank of a model group holds it)
+            if cfg.inner_limit_skip and len(sel_rows):
                 with self.timer.time("ocr_wait"):
                     res = self._resolve(work["clean"])
                 lw = self._gen_weights(sel_ids)     # pre-update history
@@ -645,11 +791,15 @@ class TrainNNPrep:
                     self.all_cers.setdefault(name, []).append(
                         float(cers_np[d, j]))
 
-        return dict(loss=float(metrics["loss"]), crnn_loss=crnn_loss,
+        loss_b = float(metrics["loss"])
+        self.step_losses.append((loss_b, crnn_loss))
+        return dict(loss=loss_b, crnn_loss=crnn_loss,
                     crnn_updates=crnn_updates, doc_out=doc_out, batch=batch)
 
     # ------------------------------------------------------------------
     def _global_select(self, epoch: int):
+        # the table is the same on every rank (every rank writes every
+        # rank's rows), and so is the stream below: the same bitmap
         cfg = self.cfg
         cers = self.cer_table.cpu().numpy()
         num = max(1, int(round(
@@ -670,15 +820,7 @@ class TrainNNPrep:
         doc_count = 0
         bb_calls_before = self.ocr.total_calls
         with self._eval_prep():
-            for batch in batch_iterator(
-                    self.validation_set, D, collate_docs,
-                    shuffle=False, drop_last=False,
-                    num_workers=default_num_workers(), prefetch=2):
-                if batch.images.shape[0] != D:
-                    # static shapes: pad the tail with mask-zero documents so
-                    # that every validation document is scored (the reference
-                    # iterates them all, `train_nn_patch.py:366-398`)
-                    batch = pad_docbatch(batch, D)
+            for batch in self._val_batches():
                 nd, nlab = self._validate_batch(batch, agg)
                 doc_count += nd
                 label_count += nlab
@@ -693,12 +835,46 @@ class TrainNNPrep:
             ocr_cer=agg["ocr_cer"] / n_docs,
             match_cer=agg["match_cer"] / n_docs,
             loss=agg["loss"] / n_docs,
-            bb_calls=self.ocr.total_calls - bb_calls_before,
+            bb_calls=int(process_sum(
+                [self.ocr.total_calls - bb_calls_before])[0]),
         )
+
+    def _val_batches(self):
+        """This rank's validation batches, all of `batch_docs / data-axis
+        size` documents. Single-process: the whole set in order, the tail
+        padded with mask-zero documents so that every document is scored
+        (the reference iterates them all, `train_nn_patch.py:366-398`).
+        Over several ranks each window of `batch_docs` documents is split
+        into per-rank slices, as training batches are; a rank whose slice
+        is empty feeds an all-padding batch, so the ranks step in
+        lockstep."""
+        D, Dl = self.cfg.batch_docs, self._dl
+        if self._pc == 1:
+            for batch in batch_iterator(
+                    self.validation_set, D, collate_docs,
+                    shuffle=False, drop_last=False,
+                    num_workers=default_num_workers(), prefetch=2):
+                yield pad_docbatch(batch, D) \
+                    if batch.images.shape[0] != D else batch
+            return
+        template = None
+        for start in range(0, self.val_set_size, D):
+            window = np.arange(start, min(start + D, self.val_set_size))
+            local_idx = window[self._pi * Dl:(self._pi + 1) * Dl]
+            samples = [self.validation_set[int(i)] for i in local_idx]
+            if samples:
+                template = pad_docbatch(collate_docs(samples), Dl)
+                yield template
+            else:
+                if template is None:
+                    template = pad_docbatch(
+                        collate_docs([self.validation_set[0]]), Dl)
+                yield blank_docbatch(template, Dl)
 
     def _validate_batch(self, batch: DocBatch, agg: dict):
         """Score one validation batch into `agg`; returns its counts of real
-        documents and valid strips."""
+        documents and valid strips. Over several ranks `batch` is this
+        rank's slice, and the sums and counts are global."""
         L = self.charmap.max_len
         n = batch.strip_mask.size          # strip rows
         dev_mask = self._dev(batch.strip_mask)
@@ -713,8 +889,8 @@ class TrainNNPrep:
         ocr_labels = np.full((n, L), self.charmap.pad_id, np.int32)
         ocr_lengths = np.zeros((n,), np.int32)
         if len(rows):
-            res = self.ocr.query(
-                strips[self._dev(rows)].float().cpu().numpy())
+            res = self._resolve(self._ask(
+                strips[self._dev(rows)].float().cpu().numpy(), wait=True))
             ocr_labels[rows] = res.labels
             ocr_lengths[rows] = res.lengths
         ocr_labels = self._dev(ocr_labels)
@@ -729,11 +905,17 @@ class TrainNNPrep:
             dec_c, dec_l, ocr_labels, ocr_lengths, flat_mask)
         # padded documents have no valid strip; every real one has at least
         # one (the dataset injects a dummy ' ')
-        real_docs = int(dev_mask.any(dim=1).sum())
-        valid_strips = int(flat_mask.sum())
-        agg["crnn_crt"] += float(crt); agg["crnn_cer"] += float(cer)
-        agg["ocr_crt"] += float(t_crt); agg["ocr_cer"] += float(t_cer)
-        agg["match_crt"] += float(m_crt); agg["match_cer"] += float(m_cer)
+        sums = torch.stack([x.float() for x in (
+            crt, cer, t_crt, t_cer, m_crt, m_cer, dev_mask.any(dim=1).sum(),
+            flat_mask.sum())])
+        if self.group is not None:
+            dist.all_reduce(sums, group=self.group)
+        crt, cer, t_crt, t_cer, m_crt, m_cer, real_docs, valid_strips = \
+            sums.tolist()
+        real_docs, valid_strips = int(real_docs), int(valid_strips)
+        agg["crnn_crt"] += crt; agg["crnn_cer"] += cer
+        agg["ocr_crt"] += t_crt; agg["ocr_cer"] += t_cer
+        agg["match_crt"] += m_crt; agg["match_cer"] += m_cer
         # the batch loss is a mean over the batch's real documents; x
         # real_docs recovers the per-document sum, for the reference's
         # /val_set_size denominator (`train_nn_patch.py:396`)
@@ -742,12 +924,19 @@ class TrainNNPrep:
 
     # ------------------------------------------------------------------
     def _save_side_jsons(self, epoch: int):
+        # side-state is the rank's own (documents are pinned to ranks):
+        # over several ranks each writes its shard, suffixed .pN
+        sfx = f".p{self._rank}" if self._world > 1 else ""
+
+        def path(dirname, name):
+            base, ext = os.path.splitext(name)
+            return os.path.join(dirname, base + sfx + ext)
+
         for name in (f"tracked_labels_{epoch}.json",
                      "tracked_labels_current.json"):
-            self.history.save_json(
-                os.path.join(self.dirs.tracked_labels, name),
-                self.dataset.id_to_name)
+            self.history.save_json(path(self.dirs.tracked_labels, name),
+                                   self.dataset.id_to_name)
         save_json(self.selected_samples,
-                  os.path.join(self.dirs.selected_samples,
-                               "selected_samples_current.json"))
-        save_json(self.all_cers, os.path.join(self.dirs.cers, "all_cers.json"))
+                  path(self.dirs.selected_samples,
+                       "selected_samples_current.json"))
+        save_json(self.all_cers, path(self.dirs.cers, "all_cers.json"))

@@ -18,7 +18,8 @@ import torch
 
 
 def adam_l2(params: Iterable[torch.nn.Parameter], learning_rate: float,
-            weight_decay: float = 0.0) -> torch.optim.Adam:
+            weight_decay: float = 0.0, *,
+            sharded: bool = False) -> torch.optim.Adam:
     """Adam with coupled L2 decay on every parameter given (batch-norm
     scales and biases and LSTM biases too, as in the JAX package):
     betas (0.9, 0.999), eps 1e-8 outside the square root.
@@ -27,8 +28,14 @@ def adam_l2(params: Iterable[torch.nn.Parameter], learning_rate: float,
     parameters on a CUDA device (one kernel per update instead of several
     per tensor) and the default elsewhere. All three compute the same
     update; `chip_smoke.py` holds a float32 step on the card against the
-    same step on the CPU."""
+    same step on the CPU. `sharded`: the parameters will be `DTensor`
+    shards beside plain tensors (`parallel.tp.put_tp`), which the
+    multi-tensor implementations do not mix: one tensor at a time."""
     params = list(params)
+    if sharded:
+        return torch.optim.Adam(params, lr=learning_rate, betas=(0.9, 0.999),
+                                eps=1e-8, weight_decay=weight_decay,
+                                foreach=False, fused=False)
     fused = bool(params) and all(p.is_cuda for p in params)
     return torch.optim.Adam(params, lr=learning_rate, betas=(0.9, 0.999),
                             eps=1e-8, weight_decay=weight_decay,
@@ -57,9 +64,16 @@ def cosine_lr(base_lr: float, epoch: int, t_max: int) -> float:
 def ema_update(ema: Sequence[torch.Tensor],
                params: Iterable[torch.nn.Parameter], decay: float) -> None:
     """`ema = decay * ema + (1 - decay) * params`, in place: the prep
-    trainers' `prep_ema` average, one update after each phase-B step."""
+    trainers' `prep_ema` average, one update after each phase-B step. The
+    same two operations tensor by tensor where the parameters are `DTensor`
+    shards beside plain tensors, which one multi-tensor call cannot mix."""
+    params = [p.detach() for p in params]
+    if any(type(p) is not torch.Tensor for p in params):
+        for e, p in zip(ema, params):
+            e.mul_(decay).add_(p, alpha=1.0 - decay)
+        return
     torch._foreach_mul_(ema, decay)
-    torch._foreach_add_(ema, [p.detach() for p in params], alpha=1.0 - decay)
+    torch._foreach_add_(ema, params, alpha=1.0 - decay)
 
 
 @contextlib.contextmanager

@@ -59,6 +59,21 @@ def load_json(path: str) -> Any:
         return json.load(f)
 
 
+def resolve_side_shard(path: str, process_index: int) -> str:
+    """Resolve a side-state JSON path to this process's per-host shard.
+
+    Multi-process trainers shard label-history/selection/CER side-state per
+    host with a ``.pN`` suffix before the extension (``tracked_labels.p1.json``
+    — `PatchTrainer._save_side_jsons`). Resume accepts the unsuffixed name on
+    every worker and prefers the worker's own shard when one exists, so a pod
+    restart uses one flag value across hosts. Falls back to ``path`` verbatim
+    (single-process runs, or a shard recorded for a different topology).
+    """
+    base, ext = os.path.splitext(path)
+    shard = f"{base}.p{process_index}{ext}"
+    return shard if os.path.exists(shard) else path
+
+
 def _png_chunk(kind: bytes, data: bytes) -> bytes:
     return (struct.pack(">I", len(data)) + kind + data
             + struct.pack(">I", zlib.crc32(kind + data) & 0xFFFFFFFF))
@@ -116,13 +131,19 @@ def _cpu(obj):
     return obj
 
 
-def save_checkpoint(path: str, model: torch.nn.Module,
-                    optimizer: torch.optim.Optimizer | None = None) -> None:
+def save_checkpoint(path: str, model: torch.nn.Module | dict,
+                    optimizer: torch.optim.Optimizer | dict | None = None
+                    ) -> None:
     """Write `model`'s state_dict to `path` and, if given, `optimizer`'s to
-    `path + ".optim"`, both as CPU tensors."""
-    torch.save(_cpu(dict(model.state_dict())), path)
+    `path + ".optim"`, both as CPU tensors. Either may be given as its
+    state_dict already (one gathered whole from shards,
+    `parallel.tp.state_dict_whole`)."""
+    sd = model if isinstance(model, dict) else model.state_dict()
+    torch.save(_cpu(dict(sd)), path)
     if optimizer is not None:
-        torch.save(_cpu(optimizer.state_dict()), path + OPTIM_SUFFIX)
+        osd = optimizer if isinstance(optimizer, dict) \
+            else optimizer.state_dict()
+        torch.save(_cpu(osd), path + OPTIM_SUFFIX)
 
 
 def load_checkpoint(path: str, model: torch.nn.Module,

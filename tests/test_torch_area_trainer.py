@@ -167,7 +167,7 @@ def test_eval_area_roundtrip(area_run):
 
 
 @pytest.mark.parametrize("flag,value,item", [
-    ("data_parallel", True, "item 7"), ("optuna_trial", object(), "item 8")])
+    ("optuna_trial", object(), "item 8")])
 def test_unported_options_raise_naming_the_roadmap(tmp_path, flag, value,
                                                    item):
     with pytest.raises(NotImplementedError, match=item):

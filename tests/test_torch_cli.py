@@ -113,9 +113,8 @@ def test_area_main_trains_on_the_synthetic_world(tmp_path, capsys):
 
 def test_unported_flags_parse_and_then_raise(tmp_path):
     base = ["--exp_base_path", str(tmp_path), "--device", "cpu"]
-    for main, argv in ((tcli.main, ARGV + ["--data_parallel"]),
-                       (tcli.main, ARGV + ["--tensor_parallel", "2"]),
-                       (tcli.main, ARGV + ["--pruning_artifact", "p.json"]),
-                       (t_area_cli.main, AREA_ARGV + ["--data_parallel"])):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            main(base + argv)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        tcli.main(base + ARGV + ["--pruning_artifact", "p.json"])
+    # without a process group the parallel flags check their world
+    with pytest.raises(ValueError, match="needs a process group"):
+        tcli.main(base + ARGV + ["--tensor_parallel", "2"])

@@ -224,9 +224,10 @@ def test_cli_flags_and_config_equal_the_jax_ones():
 
 
 def test_unported_and_missing_gpu_raise(tmp_path, monkeypatch):
-    with pytest.raises(NotImplementedError, match="item 7"):
-        tcli.main(["--device", "cpu", "--dataset", "synthetic",
-                   "--data_parallel"])
+    # data_parallel without a process group is a world of one
+    trainer = ttrainer.TrainCRNN(_cfg(ttrainer.CrnnTrainerConfig,
+                                      data_parallel=True, device="cpu"))
+    assert (trainer._pc, trainer._bl, trainer.group) == (1, B, None)
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         ttrainer.TrainCRNN(_cfg(ttrainer.CrnnTrainerConfig))

@@ -104,9 +104,13 @@ def _batch_iterator():
     _assert_batches_equal(t_pipeline.blank_docbatch(tbs[0], 3),
                           j_pipeline.blank_docbatch(jbs[0], 3))
     assert t_pipeline.default_num_workers() == j_pipeline.default_num_workers()
-    with pytest.raises(NotImplementedError, match="item 7"):
-        next(t_pipeline.batch_iterator(td, 2, t_pipeline.collate_docs,
-                                       host_shard=(0, 2)))
+    for p in range(2):
+        jbs = list(j_pipeline.batch_iterator(jd, 4, j_pipeline.collate_docs,
+                                             seed=2, host_shard=(p, 2)))
+        tbs = list(t_pipeline.batch_iterator(td, 4, t_pipeline.collate_docs,
+                                             seed=2, host_shard=(p, 2)))
+        assert len(tbs) == len(jbs) == 1
+        _assert_batches_equal(tbs[0], jbs[0])
 
     def boom():
         yield 1
@@ -115,6 +119,31 @@ def _batch_iterator():
     assert next(it) == 1
     with pytest.raises(KeyError):
         next(it)
+
+
+def _multihost():
+    """`parallel/multihost.py`'s host functions and `resolve_side_shard`."""
+    import tempfile
+    from pathlib import Path
+
+    from qea_ocr_tpu.parallel import multihost as j_mh
+    from qea_ocr_tpu.utils.io import resolve_side_shard as j_resolve
+    from qea_ocr_tpu_torch.parallel import multihost as t_mh
+    from qea_ocr_tpu_torch.utils.io import resolve_side_shard as t_resolve
+    idx = np.random.default_rng(11).permutation(37)
+    for pc in (1, 2, 4):
+        assert t_mh.local_batch_size(8, pc) == j_mh.local_batch_size(8, pc)
+        for p in range(pc):
+            np.testing.assert_array_equal(
+                t_mh.shard_indices_for_host(idx, 8, p, pc),
+                j_mh.shard_indices_for_host(idx, 8, p, pc))
+            np.testing.assert_array_equal(t_mh.pinned_subset(idx, p, pc),
+                                          j_mh.pinned_subset(idx, p, pc))
+    with tempfile.TemporaryDirectory() as tmp:
+        path = str(Path(tmp) / "cers.json")
+        (Path(tmp) / "cers.p2.json").write_text("{}")
+        for rank in range(4):
+            assert t_resolve(path, rank) == j_resolve(path, rank)
 
 
 def _ocr_engine():
@@ -313,7 +342,7 @@ def _reference_pickle():
 @pytest.mark.parametrize("case", [_config, _charmap, _documents, _fake_ocr,
                                   _state_dicts, _batch_iterator, _ocr_engine,
                                   _words, _native, _cer_of_batch,
-                                  _reference_pickle],
+                                  _reference_pickle, _multihost],
                          ids=lambda f: f.__name__[1:])
 def test_copy_equals_original(case):
     case()

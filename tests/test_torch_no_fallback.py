@@ -41,7 +41,8 @@ def test_port_modules_never_import_jax():
                 "eval.eval_utils", "eval.eval_crnn", "eval.eval_prep",
                 "cli.eval_crnn", "cli.eval_prep", "utils.native",
                 "tools.cer_seed", "tools.quality_run", "train.area_trainer",
-                "cli.area_cli", "tools.import_torch", "tools.export_model"):
+                "cli.area_cli", "tools.import_torch", "tools.export_model",
+                "parallel.mesh", "parallel.multihost", "parallel.tp"):
         assert "qea_ocr_tpu_torch." + new in mods, new
     code = ("import importlib, sys\n"
             f"for m in {mods!r}: importlib.import_module(m)\n"
@@ -80,6 +81,35 @@ def test_cuda_device_without_gpu_raises(monkeypatch):
     assert resolve_device("cpu") == torch.device("cpu")
     with pytest.raises(ValueError):
         resolve_device("mps")
+
+
+def test_cuda_process_group_never_takes_gloo(monkeypatch):
+    """A process group for a CUDA device is NCCL or nothing: without CUDA,
+    or without NCCL, `maybe_init_distributed` raises before it makes a
+    group, and a Gloo group that exists is refused to a CUDA run."""
+    import torch.distributed as dist
+
+    from qea_ocr_tpu_torch.parallel import multihost
+
+    monkeypatch.setenv("QEA_DISTRIBUTED", "1")
+    monkeypatch.setenv("QEA_COORDINATOR", "127.0.0.1:1")
+    monkeypatch.setenv("QEA_NUM_PROCESSES", "1")
+    monkeypatch.setenv("QEA_PROCESS_ID", "0")
+    monkeypatch.setattr(dist, "init_process_group", lambda *a, **k:
+                        pytest.fail("a group was made"))
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        multihost.maybe_init_distributed("cuda")
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(dist, "is_nccl_available", lambda: False)
+    with pytest.raises(RuntimeError, match="NCCL"):
+        multihost.maybe_init_distributed("cuda")
+    assert multihost.backend_for("cpu") == "gloo"
+    monkeypatch.setattr(dist, "is_initialized", lambda: True)
+    monkeypatch.setattr(dist, "is_nccl_available", lambda: True)
+    monkeypatch.setattr(dist, "get_backend", lambda *a: "gloo")
+    with pytest.raises(RuntimeError, match="needs nccl"):
+        multihost.maybe_init_distributed("cuda")
 
 
 def test_missing_nvcc_raises(monkeypatch, tmp_path):

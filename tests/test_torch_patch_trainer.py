@@ -334,13 +334,23 @@ def test_conv_impl_env_reroutes_the_twin_only(tmp_path, monkeypatch):
 
 
 @pytest.mark.parametrize("flag,value,item", [
-    ("data_parallel", True, "item 7"), ("tensor_parallel", 2, "item 7"),
     ("pruning_artifact", "x.json", "item 8"),
     ("optuna_trial", object(), "item 8")])
 def test_unported_options_raise_naming_the_roadmap(tmp_path, flag, value,
                                                    item):
     with pytest.raises(NotImplementedError, match=item):
         TrainNNPrep(tiny_cfg(tmp_path, **{flag: value}))
+
+
+def test_parallel_flags_without_a_process_group(tmp_path):
+    """`data_parallel` without a process group is a world of one (the
+    single-process steps); `tensor_parallel` needs a group; the micro-step
+    chunk must divide over the data axis (checked with a world of one)."""
+    trainer = TrainNNPrep(tiny_cfg(tmp_path, data_parallel=True))
+    assert (trainer.group, trainer._pc, trainer._world) == (None, 1, 1)
+    assert trainer._dl == trainer.cfg.batch_docs
+    with pytest.raises(ValueError, match="needs a process group"):
+        TrainNNPrep(tiny_cfg(tmp_path, tensor_parallel=2))
 
 
 def test_unported_ocr_and_missing_gpu_raise(tmp_path, monkeypatch):
