@@ -155,21 +155,48 @@ Phases; any failure raises, so the exit code is non-zero:
                  `train_crnn.main` and `area_cli.main` with `--data_parallel`
                  for an epoch each: ledgers as single-process.
                  `DocumentCleaner(data_parallel=True)` on 16 documents,
-                 bitwise equal to single-process (the CLI's PNG input needs
-                 Pillow, absent on that machine: the CPU test
-                 `tests/test_torch_dp.py` runs `clean_docs --data_parallel`).
+                 bitwise equal to single-process (the CLI's PNG input is
+                 left to the CPU test `tests/test_torch_dp.py`, which runs
+                 `clean_docs --data_parallel`).
                  The group is destroyed; every kernel must have launched in
                  the phase (`launches_parallel`). Two ranks cannot share one
                  card under NCCL: the 2- and 4-rank checks are the CPU
                  tests'.
  10. export    - the trainer phase's last UNet checkpoint through
-                 `tools/export_model.py` on the card at (8, 1, 400, 512):
-                 with `QEA_CONV_IMPL=cmajor` it must raise before writing;
-                 the artifact is loaded by a Python process that cannot
-                 import the port and its output held against the eager
-                 eval forward (max 2e-2, mean 2e-3: the JAX export test's
-                 bounds); bytes, export, CUDA set-up, load and forward
-                 times logged.
+                 `tools/export_model.py` on the card at (8, 1, 400, 512),
+                 on both routes. The library route's artifact is loaded by
+                 a Python process that cannot import the port and its
+                 output held against the eager eval forward (max 2e-2,
+                 mean 2e-3: the JAX export test's bounds). With
+                 `QEA_CONV_IMPL=cmajor` the artifact must hold 8
+                 `qea_ocr::conv_flat` nodes and the export launch nothing
+                 (it traces fake tensors); a second process puts the
+                 repository root on `sys.path`, imports only
+                 `qea_ocr_tpu_torch.ops.conv_cmajor` (no `models`, `train`
+                 or `serve` module may be loaded), loads the artifact and
+                 runs it: 8 conv launches a forward, its output held
+                 against the eager channel-major twin in this process to
+                 the same bounds. Bytes, export, CUDA set-up, load and
+                 forward times of both logged.
+ 11. tooling   - pruning and sweeps on the trainer phase's world (16 + 8
+                 synthetic documents of 400x512, 12 strips, fake OCR, full
+                 width): `tools/cer_seed` on the 16 training documents (16
+                 gather forwards), `tools/prune_cli` by topk and by FL to 8
+                 documents, `tools/cer_analysis` with its summary, then
+                 `patch_cli.main` for one epoch on the topk artifact with
+                 `QEA_CONV_IMPL=cmajor`: the trainer's documents exactly
+                 the artifact's, the ledger that of 8 documents, every
+                 kernel launched as one step and one validation batch
+                 count, and the CTC pair held against its plain versions
+                 on one batch of the run. Then `sweeps.sweep.main`, the
+                 random search (no optuna on the card): 2 patch trials and
+                 1 CRNN trial of one epoch each on the same world, each
+                 trial's parameters those of a seed-0 random search, the
+                 result's keys and best trial checked. Last
+                 `tools/build_patch_dataset --mock` on 2 of the world's
+                 documents written as PNG files: the copies byte for byte,
+                 the GVision mock's box in each sidecar, and the port's
+                 `PatchDocuments` reading both back with one strip each.
 
 The line before last is the card's name and power limit, and before it a
 JSON line with each kernel's launches, error, times and bound; the last line
@@ -245,6 +272,11 @@ AREA_TRAIN, AREA_VAL, AREA_BATCH, AREA_WINDOW, AREA_EPOCHS = 256, 72, 64, 3, 2
 # the exported artifact vs the eager eval forward: the JAX export test's
 # bounds for a bfloat16 UNet (`tests/test_export.py:38-39`)
 EXPORT_MAX_ERR, EXPORT_MEAN_ERR = 2e-2, 2e-3
+# the tooling phase: the trainer phase's world, pruned to half its training
+# documents for one epoch; 2 patch trials and 1 CRNN trial of one epoch
+TOOLING_TRAIN, TOOLING_VAL, TOOLING_STRIPS, TOOLING_KEEP = 16, 8, 12, 8
+TOOLING_SEED = 42          # PatchTrainerConfig.random_seed: its world's seed
+SWEEP_PATCH_TRIALS, SWEEP_CRNN_TRIALS = 2, 1
 # the parallel phase against the trainer phase, one card: at a world of one
 # every all-reduce is the identity, so the first step differs by rounding
 # only (the global batch norm's own sums against `F.batch_norm`); after
@@ -1377,12 +1409,15 @@ def conv_impl_cmajor():
             os.environ["QEA_CONV_IMPL"] = before
 
 
-def trainer_launches() -> dict:
-    """The kernel launches of one run of the trainer phase's configuration."""
-    return {k: TRAINER_EPOCHS * (
-        TRAINER_STEPS * LAUNCHES_TRAINER_STEP[k]
-        + TRAINER_VAL_BATCHES * LAUNCHES_VAL_BATCH[k])
-        for k in LAUNCHES_TRAINER_STEP}
+def trainer_launches(steps: int = TRAINER_STEPS,
+                     val_batches: int = TRAINER_VAL_BATCHES,
+                     runs: int = TRAINER_EPOCHS) -> dict:
+    """The kernel launches of `runs` epochs (or trials) of `steps` trainer
+    steps and `val_batches` validation batches; by default one run of the
+    trainer phase's configuration."""
+    return {k: runs * (steps * LAUNCHES_TRAINER_STEP[k]
+                       + val_batches * LAUNCHES_VAL_BATCH[k])
+            for k in LAUNCHES_TRAINER_STEP}
 
 
 def run_trainer(torch, dev, card, exp):
@@ -1509,12 +1544,12 @@ def run_trainer(torch, dev, card, exp):
                         last_epoch_stage_s=stages), ckpt, single
 
 
-def _expect(phase: str, want: dict) -> dict:
+def _expect(phase: str, want: dict, tag: str = "pipeline") -> dict:
     """The launch counts since the last reset, which must equal `want`
     (kernels not named there: 0). Resets the counts."""
     counts = _counts()
     full = {k: want.get(k, 0) for k in counts}
-    log(f"[pipeline] {phase}: kernel launches {json.dumps(counts)}")
+    log(f"[{tag}] {phase}: kernel launches {json.dumps(counts)}")
     if counts != full:
         raise AssertionError(f"launches in {phase}: {counts}, expected "
                              f"{full}")
@@ -2196,71 +2231,407 @@ print(cuda_s, load_s, float(np.median(times[1:])))
 """
 
 
+# a cmajor artifact's loader: the repository root on sys.path and only the
+# operator's registration module imported, nothing of the models, trainers
+# or serving
+_CMAJOR_LOADER = """
+import sys, time
+import numpy as np
+import torch
+sys.path.insert(0, sys.argv[1])
+import qea_ocr_tpu_torch.ops.conv_cmajor
+from qea_ocr_tpu_torch.ops.cuda import conv_cmajor_cuda
+
+
+def check_modules():
+    bad = sorted(m for m in sys.modules if m.startswith(tuple(
+        f"qea_ocr_tpu_torch.{p}" for p in ("models", "train", "serve"))))
+    if bad:
+        sys.exit(f"the loader imported {bad}")
+
+
+check_modules()
+t0 = time.perf_counter()
+torch.zeros(1, device="cuda")
+cuda_s = time.perf_counter() - t0
+t0 = time.perf_counter()
+clean = torch.export.load(sys.argv[2]).module()
+load_s = time.perf_counter() - t0
+x = torch.from_numpy(np.load(sys.argv[3])).cuda()
+times = []
+with torch.no_grad():
+    conv_cmajor_cuda.launches = 0
+    y = clean(x)
+    torch.cuda.synchronize()
+    launches = conv_cmajor_cuda.launches
+    for _ in range(6):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        clean(x)
+        torch.cuda.synchronize()
+        times.append(1e3 * (time.perf_counter() - t0))
+check_modules()
+np.save(sys.argv[4], y.float().cpu().numpy())
+print(cuda_s, load_s, float(np.median(times[1:])), launches)
+"""
+
+
 def run_export(torch, dev, card, work, prep_ckpt):
     """The trainer phase's last UNet checkpoint through
-    `tools/export_model.py` on the card; the artifact loaded and run by a
-    Python process that cannot import the port, against the eager eval
-    forward; and the channel-major route refused before anything is
-    written. Returns the phase's readings."""
+    `tools/export_model.py` on the card, on the library route and on the
+    channel-major one. The library artifact is loaded and run by a Python
+    process that cannot import the port, against the eager eval forward;
+    the channel-major one by a process that imports only the conv
+    operator's module, against the eager twin. Returns the phase's readings
+    and the loader's conv launches for one forward."""
     from qea_ocr_tpu_torch.data import PatchDocuments, collate_docs
     from qea_ocr_tpu_torch.models.unet import UNet
     from qea_ocr_tpu_torch.tools import export_model
     from qea_ocr_tpu_torch.utils.io import load_checkpoint
 
-    out = os.path.join(work, "prep.pt2")
+    root = os.path.dirname(os.path.abspath(__file__))
     flags = ["--prep_path", prep_ckpt, "--batch_size", str(D), "--doc_size",
              *map(str, DOC_SIZE), "--unet_features", str(UNET_FEATURES),
              "--device", "cuda"]
-    refused = os.path.join(work, "refused.pt2")
-    with conv_impl_cmajor():
-        try:
-            export_model.main(flags + ["--out", refused])
-        except NotImplementedError as e:
-            log(f"[export] QEA_CONV_IMPL=cmajor refused: {e}")
-        else:
-            raise AssertionError("the export took the conv kernel's route")
-    if os.path.exists(refused):
-        raise AssertionError("the refused export wrote a file")
-    _reset_counts()
-    t0 = time.perf_counter()
-    info = export_model.main(flags + ["--out", out])
-    export_s = time.perf_counter() - t0
     x = collate_docs(list(PatchDocuments.synthetic(
         D, seed=61, n_strips=12, max_strips=S, doc_size=DOC_SIZE))).images
     np.save(os.path.join(work, "x.npy"), x)
-    # -I: neither PYTHONPATH nor the current directory on sys.path, and the
-    # process runs outside the checkout
-    proc = subprocess.run(
-        [sys.executable, "-I", "-c", _EXPORT_LOADER, out, "x.npy", "y.npy"],
-        cwd=work, capture_output=True, text=True, timeout=300)
-    if proc.returncode != 0:
-        raise AssertionError(f"loading the artifact failed: {proc.stderr}")
-    cuda_s, load_s, artifact_ms = map(float, proc.stdout.split())
-    got = np.load(os.path.join(work, "y.npy"))
     eager = UNet(init_features=UNET_FEATURES, conv_impl="xla")
     load_checkpoint(prep_ckpt, eager)
     eager = eager.to(dev).eval()
+    twin = eager.twin("cmajor").eval()
     xs = torch.from_numpy(x).to(dev)
+    readings = {}
+    for route in ("xla", "cmajor"):
+        out = os.path.join(work, f"prep_{route}.pt2")
+        _reset_counts()
+        with contextlib.ExitStack() as stack:
+            if route == "cmajor":
+                stack.enter_context(conv_impl_cmajor())
+            t0 = time.perf_counter()
+            info = export_model.main(flags + ["--out", out])
+            export_s = time.perf_counter() - t0
+        if _counts() != {k: 0 for k in _counts()}:
+            raise AssertionError(f"the {route} export launched {_counts()}")
+        want_nodes = CONVS_PER_FORWARD if route == "cmajor" else 0
+        if info["conv_impl"] != route \
+                or info["conv_flat_nodes"] != want_nodes:
+            raise AssertionError(f"the {route} export: {info}")
+        if route == "xla":
+            # -I: neither PYTHONPATH nor the current directory on sys.path,
+            # and the process runs outside the checkout
+            cmd = [sys.executable, "-I", "-c", _EXPORT_LOADER, out, "x.npy",
+                   "y.npy"]
+            model = eager
+        else:
+            cmd = [sys.executable, "-I", "-c", _CMAJOR_LOADER, root, out,
+                   "x.npy", "y.npy"]
+            model = twin
+        proc = subprocess.run(cmd, cwd=work, capture_output=True, text=True,
+                              timeout=300)
+        if proc.returncode != 0:
+            raise AssertionError(f"loading the {route} artifact failed: "
+                                 f"{proc.stdout}{proc.stderr}")
+        vals = proc.stdout.split()
+        cuda_s, load_s, artifact_ms = map(float, vals[:3])
+        got = np.load(os.path.join(work, "y.npy"))
+        _reset_counts()
+        with torch.no_grad():
+            want = model(xs).float().cpu().numpy()
+            forward_launches = _counts()["conv"]
+            eager_ms = _host_ms(torch, lambda: model(xs))
+        _reset_counts()
+        diff = np.abs(got - want)
+        if got.shape != want.shape or not np.isfinite(got).all() \
+                or diff.max() > EXPORT_MAX_ERR \
+                or diff.mean() > EXPORT_MEAN_ERR:
+            raise AssertionError(f"{route} artifact vs eager: shape "
+                                 f"{got.shape}, max {diff.max()}, mean "
+                                 f"{diff.mean()}")
+        r = dict(bytes=info["bytes"], export_s=export_s, cuda_s=cuda_s,
+                 load_s=load_s, artifact_ms=artifact_ms, eager_ms=eager_ms,
+                 max_abs=float(diff.max()), mean_abs=float(diff.mean()),
+                 nodes=info["conv_flat_nodes"])
+        if route == "cmajor":
+            r["loader_conv_launches"] = int(vals[3])
+            r["fused"] = info["cmajor_fused"]
+            if r["loader_conv_launches"] != CONVS_PER_FORWARD \
+                    or forward_launches != CONVS_PER_FORWARD:
+                raise AssertionError(
+                    f"conv launches a forward: artifact "
+                    f"{r['loader_conv_launches']}, eager twin "
+                    f"{forward_launches}, expected {CONVS_PER_FORWARD}")
+        readings[route] = r
+        log(f"[export] {route}: {json.dumps(info)}: export {export_s:.2f} "
+            f"s; in a process "
+            + ("without the port" if route == "xla" else
+               "that imports only qea_ocr_tpu_torch.ops.conv_cmajor")
+            + f", CUDA set-up {cuda_s:.2f} s, then the artifact's load "
+            f"{load_s:.2f} s; artifact vs eager "
+            f"{'eval forward' if route == 'xla' else 'twin forward'} (D={D}, "
+            f"{DOC_SIZE}, bf16) max abs {diff.max():.3g}, mean "
+            f"{diff.mean():.3g}; a forward {artifact_ms:.2f} ms (artifact) "
+            f"/ {eager_ms:.2f} ms (eager) (host clock, medians after "
+            f"warm-up; {card})")
+    return readings, readings["cmajor"]["loader_conv_launches"]
+
+
+def _random_search_params(n: int, space) -> list:
+    """The parameters a seed-0 random search draws for `n` trials, each
+    suggestion of `space` (name, low, high, log) in turn, computed here."""
+    rng = np.random.default_rng(0)
+    out = []
+    for _ in range(n):
+        trial = {}
+        for name, lo, hi, log_scale in space:
+            if log_scale is None:
+                trial[name] = int(rng.integers(lo, hi + 1))
+            elif log_scale:
+                trial[name] = float(np.exp(rng.uniform(np.log(lo),
+                                                       np.log(hi))))
+            else:
+                trial[name] = float(rng.uniform(lo, hi))
+        out.append(trial)
+    return out
+
+
+def run_tooling(torch, dev, card, work, single):
+    """Pruning and sweeps at full width on the card, on the trainer phase's
+    world: the CER seed, both pruning methods, the CER analysis, one pruned
+    epoch of `patch_cli.main` on the conv kernel's route, and the random
+    search over both trainers. Returns the kernel launch counts of the
+    whole phase and its readings."""
+    from qea_ocr_tpu_torch.cli import patch_cli
+    from qea_ocr_tpu_torch.data import collate_docs
+    from qea_ocr_tpu_torch.ops.text_stack import get_text_stack_batch
+    from qea_ocr_tpu_torch.pruning.prune import doc_mean_cers, load_artifact
+    from qea_ocr_tpu_torch.sweeps import sweep
+    from qea_ocr_tpu_torch.tools import (
+        build_patch_dataset, cer_analysis, cer_seed, prune_cli)
+
+    t_phase = time.perf_counter()
+    total, readings = {}, {}
+
+    def add(counts):
+        for k, v in counts.items():
+            total[k] = total.get(k, 0) + v
+
+    # (1) the CER seed of the trainer's 16 training documents: one gather
+    # a document
+    cers_path = os.path.join(work, "tooling_cers.json")
+    _reset_counts()
+    t0 = time.perf_counter()
+    cer_seed.main(["--mode", "patch", "--dataset", "synthetic", "--ocr",
+                   "Fake", "--synthetic_size", str(TOOLING_TRAIN), "--seed",
+                   str(TOOLING_SEED), "--strips_per_doc", str(TOOLING_STRIPS),
+                   "--max_strips", str(S), "--doc_size", *map(str, DOC_SIZE),
+                   "--device", "cuda", "--out", cers_path])
+    readings["cer_seed_s"] = time.perf_counter() - t0
+    add(_expect("cer_seed", {"gather_fwd": TOOLING_TRAIN}, "tooling"))
+    with open(cers_path) as f:
+        strip_cers = json.load(f)
+    means = doc_mean_cers(strip_cers)
+    if len(strip_cers) != TOOLING_TRAIN * TOOLING_STRIPS \
+            or len(means) != TOOLING_TRAIN:
+        raise AssertionError(f"CER seed: {len(strip_cers)} strips of "
+                             f"{len(means)} documents")
+
+    # (2) both pruning methods to half the documents
+    arts = {}
+    for method in ("topk", "FL"):
+        prune_cli.main(["--cers", cers_path, "--method", method,
+                        "--num_samples", str(TOOLING_KEEP), "--out_dir",
+                        work, "--artifact_name", f"tooling_{method}"])
+        arts[method] = load_artifact(
+            os.path.join(work, f"tooling_{method}.json"))
+        if len(arts[method]) != TOOLING_KEEP or not all(
+                means[k] == v for k, v in arts[method].items()):
+            raise AssertionError(f"{method} artifact: {arts[method]}")
+    ranked = sorted(means.values(), reverse=True)
+    if sorted(arts["topk"].values(), reverse=True) != ranked[:TOOLING_KEEP]:
+        raise AssertionError("the topk artifact is not the highest CERs")
+    log(f"[tooling] CER seed of {TOOLING_TRAIN} documents in "
+        f"{readings['cer_seed_s']:.2f} s; kept by topk "
+        f"{sorted(arts['topk'])}, by FL {sorted(arts['FL'])}")
+
+    # (3) the CER analysis of the same JSON
+    summary_path = os.path.join(work, "tooling_summary.json")
+    cer_analysis.main(["--cers", cers_path, "--summary_out", summary_path])
+    with open(summary_path) as f:
+        summary = json.load(f)
+    if summary["count"] != TOOLING_TRAIN \
+            or summary["easy_docs"] + summary["hard_docs"] != TOOLING_TRAIN \
+            or sum(summary["histogram"]) != TOOLING_TRAIN:
+        raise AssertionError(f"CER analysis: {summary}")
+    add(_expect("prune_cli + cer_analysis", {}, "tooling"))
+
+    # (4) one epoch of the trainer on the topk artifact, the no-grad
+    # forwards on the conv kernel: 8 documents, one step and one
+    # validation batch
+    exp = os.path.join(work, "tooling_trainer")
+    topk_path = os.path.join(work, "tooling_topk.json")
+    argv = _with_flag(single["argv"], exp, "--epoch", "1",
+                      "--pruning_artifact", topk_path)
+    with conv_impl_cmajor():
+        t0 = time.perf_counter()
+        trainer = patch_cli.main(argv)
+        torch.cuda.synchronize()
+        readings["pruned_s"] = time.perf_counter() - t0
+    steps = TOOLING_KEEP // D
+    add(_expect("the pruned epoch",
+                trainer_launches(steps, TOOLING_VAL // D, 1), "tooling"))
+    # the synthetic documents are `synth/doc_{index:05d}`, grouped by
+    # `doc_mean_cers` as `doc_{index:05d}`
+    want_idx = sorted(int(k.rsplit("_", 1)[1]) for k in arts["topk"])
+    if sorted(trainer.train_indices.tolist()) != want_idx \
+            or trainer.train_set_size != TOOLING_KEEP:
+        raise AssertionError(f"trained on {trainer.train_indices}, the "
+                             f"artifact holds {want_idx}")
+    with open(os.path.join(exp, "metrics.jsonl")) as f:
+        rec = json.loads(f.readline())
+    train_calls = TOOLING_KEEP * int(np.ceil(TOOLING_STRIPS * 0.5)) * 2
+    if rec["Black-Box Calls"] != train_calls or rec["Train + Val BB Calls"] \
+            != train_calls + TOOLING_VAL * TOOLING_STRIPS:
+        raise AssertionError(f"pruned epoch's query ledger: {rec}")
+    readings["pruned_epoch_s"] = rec["time/epoch_s"]
+    # the CTC pair at one batch of this run: phase B's shape, the cleaned
+    # strips of the pruned documents through the trained CRNN, their labels
+    batch = collate_docs([trainer.dataset[int(i)]
+                          for i in trainer.train_indices[:D]])
+    cm = trainer.charmap
+    trainer.prep_eval_model.eval()
+    trainer.crnn_model.eval()
     with torch.no_grad():
-        want = eager(xs).cpu().numpy()
-        eager_ms = _host_ms(torch, lambda: eager(xs))
-    if _counts() != {k: 0 for k in _counts()}:
-        raise AssertionError(f"the export phase launched {_counts()}")
-    diff = np.abs(got - want)
-    if got.shape != want.shape or not np.isfinite(got).all() \
-            or diff.max() > EXPORT_MAX_ERR or diff.mean() > EXPORT_MEAN_ERR:
-        raise AssertionError(f"artifact vs eager: shape {got.shape}, max "
-                             f"{diff.max()}, mean {diff.mean()}")
-    log(f"[export] {json.dumps(info)}: export {export_s:.2f} s; in a "
-        f"process without the port, CUDA set-up {cuda_s:.2f} s, then the "
-        f"artifact's load {load_s:.2f} s; artifact vs eager eval "
-        f"forward (D={D}, {DOC_SIZE}, bf16) max abs {diff.max():.3g}, mean "
-        f"{diff.mean():.3g}; a forward {artifact_ms:.2f} ms (artifact) / "
-        f"{eager_ms:.2f} ms (eager) (host clock, medians after warm-up; "
-        f"{card})")
-    return dict(bytes=info["bytes"], export_s=export_s, cuda_s=cuda_s,
-                load_s=load_s, artifact_ms=artifact_ms, eager_ms=eager_ms,
-                max_abs=float(diff.max()), mean_abs=float(diff.mean()))
+        cleaned = trainer.prep_eval_model(
+            torch.from_numpy(batch.images).to(dev)).float()
+        strips = get_text_stack_batch(
+            cleaned, torch.from_numpy(batch.bboxes).to(dev))
+        lp = trainer.crnn_model(strips.reshape(D * S, *strips.shape[2:]))
+        lp = lp.float().contiguous()
+    labels = torch.from_numpy(batch.gt_labels.reshape(D * S, -1)).to(dev)
+    lengths = torch.from_numpy(batch.gt_lengths.reshape(D * S)).to(dev)
+    g = 1.0 / (D * S * lengths.float().clamp(min=1.0))
+    _, ctc_errs = hold_ctc(torch, lp, labels.int().contiguous(),
+                           lengths.int().contiguous(), g, cm.pad_id,
+                           "the pruned run's batch")
+    _reset_counts()
+    readings["ctc"] = ctc_errs
+    log(f"[tooling] pruned epoch: patch_cli.main in "
+        f"{readings['pruned_s']:.2f} s with set-up and checkpoints, the "
+        f"epoch {rec['time/epoch_s']:.2f} s (host clock); ledger "
+        f"{rec['Black-Box Calls']} + {TOOLING_VAL * TOOLING_STRIPS}; CTC "
+        f"kernels vs plain at T={lp.shape[0]} B={lp.shape[1]} "
+        f"L={labels.shape[1]}: {json.dumps(ctc_errs)} ({card})")
+    del trainer
+
+    # (5) the random search (the card has no optuna): 2 patch trials and
+    # 1 CRNN trial of one epoch, each trial timed and its parameters kept
+    if sweep.HAVE_OPTUNA:
+        raise AssertionError("optuna is importable: the sweep would not take "
+                             "the random search this phase checks")
+    world = {
+        "patch": dict(synthetic_train_docs=TOOLING_TRAIN,
+                      synthetic_val_docs=TOOLING_VAL,
+                      synthetic_strips_per_doc=TOOLING_STRIPS, max_strips=S,
+                      batch_docs=D, doc_size=list(DOC_SIZE),
+                      unet_features=UNET_FEATURES, lstm_hidden=LSTM_HIDDEN,
+                      minibatch_subset="rangeCER", minibatch_subset_prop=0.5,
+                      window_size=3, inner_limit=2, inner_limit_skip=True),
+        "crnn": dict(synthetic_train_size=AREA_TRAIN,
+                     synthetic_val_size=AREA_BATCH, batch_size=AREA_BATCH,
+                     lstm_hidden=LSTM_HIDDEN)}
+    space = {"patch": [("lr_crnn", 5e-6, 5e-4, True),
+                       ("lr_prep", 5e-6, 5e-4, True)],
+             "crnn": [("lr", 1e-5, 1e-3, True), ("std", 1, 10, None)]}
+    want_counts = {
+        "patch": trainer_launches(TOOLING_TRAIN // D, TOOLING_VAL // D,
+                                  SWEEP_PATCH_TRIALS),
+        "crnn": {"ctc_fwd": SWEEP_CRNN_TRIALS * (AREA_TRAIN // AREA_BATCH
+                                                 + 1),
+                 "ctc_bwd": SWEEP_CRNN_TRIALS * AREA_TRAIN // AREA_BATCH}}
+    for which, n in (("patch", SWEEP_PATCH_TRIALS),
+                     ("crnn", SWEEP_CRNN_TRIALS)):
+        name = f"{which}_objective"
+        objective = getattr(sweep, name)
+        trials = []
+
+        def recording(trial, base, objective=objective, trials=trials):
+            t0 = time.perf_counter()
+            value = objective(trial, base)
+            trials.append(dict(params=dict(trial.params), value=value,
+                               s=time.perf_counter() - t0))
+            return value
+
+        out = os.path.join(work, f"sweep_{which}.json")
+        setattr(sweep, name, recording)
+        try:
+            with conv_impl_cmajor():
+                sweep.main(["--which", which, "--n_trials", str(n),
+                            "--epoch", "1", "--device", "cuda",
+                            "--exp_base_path",
+                            os.path.join(work, f"sweep_{which}"),
+                            "--world_json", json.dumps(world[which]),
+                            "--out", out])
+        finally:
+            setattr(sweep, name, objective)
+        torch.cuda.synchronize()
+        add(_expect(f"the {which} sweep", want_counts[which], "tooling"))
+        with open(out) as f:
+            result = json.load(f)
+        want_params = _random_search_params(n, space[which])
+        best = max(trials, key=lambda t: t["value"])
+        if set(result) != {"best_value", "best_params"} \
+                or [t["params"] for t in trials] != want_params \
+                or result["best_params"] != best["params"] \
+                or result["best_value"] != best["value"]:
+            raise AssertionError(f"{which} sweep: {result}, trials {trials}, "
+                                 f"seed-0 parameters {want_params}")
+        readings[f"sweep_{which}"] = trials
+        for i, t in enumerate(trials):
+            log(f"[tooling] {which} sweep trial {i}: {json.dumps(t['params'])}"
+                f" -> {t['value']:.4f} in {t['s']:.2f} s (one epoch with "
+                f"set-up and checkpoints, host clock; {card})")
+    # (6) a patch dataset from raw PNG documents through the GVision mock
+    from PIL import Image
+
+    from qea_ocr_tpu_torch.data import PatchDocuments
+
+    raw, built = os.path.join(work, "raw"), os.path.join(work, "built")
+    os.makedirs(raw)
+    docs = PatchDocuments.synthetic(2, seed=TOOLING_SEED, n_strips=2,
+                                    max_strips=S, doc_size=DOC_SIZE)
+    for i, sample in enumerate(docs.samples):
+        Image.fromarray((sample.image * 255).astype(np.uint8), "L").save(
+            os.path.join(raw, f"doc{i}.png"))
+    t0 = time.perf_counter()
+    build_patch_dataset.main(["--src", raw, "--dst", built, "--mock"])
+    readings["build_patch_dataset_s"] = time.perf_counter() - t0
+    add(_expect("build_patch_dataset", {}, "tooling"))
+    for i in range(2):
+        name = os.path.join(built, f"doc{i}")
+        with open(name + ".png", "rb") as f, \
+                open(os.path.join(raw, f"doc{i}.png"), "rb") as g:
+            if f.read() != g.read():
+                raise AssertionError(f"doc{i}.png was not copied as it was")
+        with open(name + ".json") as f:
+            if json.load(f) != [dict(label="MOCK", x_min=0, y_min=0,
+                                     x_max=127, y_max=31)]:
+                raise AssertionError(f"doc{i}.json is not the mock's box")
+    back = PatchDocuments(built, max_strips=S, doc_size=DOC_SIZE)
+    if len(back) != 2 or [int(s.strip_mask.sum()) for s in back.samples] \
+            != [1, 1]:
+        raise AssertionError("the built dataset does not read back")
+    log(f"[tooling] build_patch_dataset --mock: 2 documents of {DOC_SIZE} "
+        f"in {readings['build_patch_dataset_s']:.2f} s, read back by "
+        f"PatchDocuments with one strip each")
+
+    readings["phase_s"] = time.perf_counter() - t_phase
+    log(f"[tooling] kernel launches in this phase: {json.dumps(total)}; "
+        f"phase wall time {readings['phase_s']:.2f} s")
+    for k in total:
+        if total[k] < 1:
+            raise AssertionError(f"{k} never launched in the tooling phase")
+    return total, readings
 
 
 def main() -> None:
@@ -2276,6 +2647,7 @@ def main() -> None:
     from qea_ocr_tpu_torch.ops.cuda import build
     from qea_ocr_tpu_torch.utils.device import resolve_device
 
+    t_start = time.perf_counter()
     dev = resolve_device("cuda")
     card = gpu_line()
     log(f"[device] {card}; torch {torch.__version__}, CUDA "
@@ -2316,10 +2688,13 @@ def main() -> None:
             torch, dev, card, os.path.join(work, "area"), crnn_ckpt)
         parallel_counts, parallel = run_parallel(
             torch, dev, card, work, single, area_run)
-        export = run_export(torch, dev, card, work, prep_ckpt)
+        export, export_launches = run_export(torch, dev, card, work,
+                                             prep_ckpt)
+        tooling_counts, tooling = run_tooling(torch, dev, card, work, single)
     # the warmup's batch and the area's two shapes are more shapes the CTC
     # kernels were held at
-    for errs in (pipeline["warmup_ctc"], *area_ctc.values()):
+    for errs in (pipeline["warmup_ctc"], *area_ctc.values(),
+                 tooling["ctc"]):
         ctc_fwd["max_abs_err"] = max(ctc_fwd["max_abs_err"], errs["nll_abs"])
         ctc_bwd["max_abs_err"] = max(ctc_bwd["max_abs_err"], errs["grad_abs"])
 
@@ -2338,7 +2713,10 @@ def main() -> None:
          "launches_trainer": trainer_counts[key],
          "launches_pipeline": pipeline_counts[key],
          "launches_area": area_counts[key],
-         "launches_parallel": parallel_counts[key], **record}
+         "launches_parallel": parallel_counts[key],
+         "launches_tooling": tooling_counts[key],
+         **({"launches_export": export_launches} if key == "conv" else {}),
+         **record}
         for key, name, source, replaces, record in (
             ("gather_fwd", "gather_fwd", "gather.cu", "gather_pallas.py:113",
              gather_fwd),
@@ -2358,6 +2736,9 @@ def main() -> None:
     log(f"[area] readings: {json.dumps(area)}")
     log(f"[export] readings: {json.dumps(export)}")
     log(f"[parallel] readings: {json.dumps(parallel)}")
+    log(f"[tooling] readings: {json.dumps(tooling)}")
+    log(f"[smoke] wall time {time.perf_counter() - t_start:.1f} s from the "
+        f"device check (the build included; {card})")
     print(json.dumps({"kernels": kernels}))
     print(gpu_line())
     print(json.dumps({"ok": True, "device": {

@@ -5,8 +5,8 @@ for hermetic runs), and `--device`.
 
 Run: python -m qea_ocr_tpu_torch.cli.patch_cli --ocr Fake --dataset synthetic ...
 
-`--pruning_artifact` parses but is not ported yet: the trainer raises
-`NotImplementedError` naming the ROADMAP.md item. `QEA_CONV_IMPL=cmajor`
+`--pruning_artifact` (a `tools/prune_cli` JSON) trains on the artifact's
+documents only. `QEA_CONV_IMPL=cmajor`
 sends the trainer's no-grad UNet forwards through the hand-written
 channel-major conv kernel.
 

@@ -162,7 +162,7 @@ class UNetBlock(nn.Module):
         return x
 
 
-def _fused_by_env() -> bool:
+def fused_by_env() -> bool:
     return os.environ.get("QEA_CMAJOR_FUSED", "1").strip().lower() not in (
         "0", "false", "no", "off")
 
@@ -210,7 +210,7 @@ def flat_block(block: "UNetBlock", xf: torch.Tensor, height: int, width: int,
     `QEA_CMAJOR_FUSED=0` forces the unfused chain; train mode is always
     unfused (the batch statistics need the conv output) and leaves
     `relu(add)` on the halo rows."""
-    fuse = not block.training and _fused_by_env()
+    fuse = not block.training and fused_by_env()
     for j in (1, 2):
         layer = getattr(block, f"{block.prefix}conv{j}")
         bn = getattr(block, f"{block.prefix}norm{j}")

@@ -77,22 +77,18 @@ class OcrBackend(abc.ABC):
         return get_ununicode(self._recognize(image).strip()).split()
 
 
-# Back ends of the JAX package that the port has not copied yet.
-_UNPORTED_BACKENDS = {"Tesseract": "tesseract", "EasyOCR": "easyocr_backend",
-                      "gvision": "gvision"}
-
-
 def get_ocr_helper(name: str | None, is_eval: bool = False) -> OcrBackend | None:
     """Factory, parity with reference `utils.py:180-188` plus the hermetic
-    'Fake' backend. Unknown / None -> None. The Tesseract, EasyOCR and
-    gvision back ends are still to be copied into the port (ROADMAP.md,
-    Queue 1 item 9) and raise `NotImplementedError` until then."""
-    if name in _UNPORTED_BACKENDS:
-        raise NotImplementedError(
-            f"OCR backend {name!r} is not in qea_ocr_tpu_torch yet: "
-            f"`qea_ocr_tpu/ocr/{_UNPORTED_BACKENDS[name]}.py` is still to be "
-            "copied (ROADMAP.md, Queue 1 item 9: real OCR back ends). Use "
-            "'Fake', or pass an OcrBackend of your own.")
+    'Fake' backend. Unknown / None -> None."""
+    if name == "Tesseract":
+        from qea_ocr_tpu_torch.ocr.tesseract import TesseractBackend
+        return TesseractBackend(is_eval=is_eval)
+    if name == "EasyOCR":
+        from qea_ocr_tpu_torch.ocr.easyocr_backend import EasyOcrBackend
+        return EasyOcrBackend(is_eval=is_eval)
+    if name == "gvision":
+        from qea_ocr_tpu_torch.ocr.gvision import GVisionBackend
+        return GVisionBackend(is_eval=is_eval)
     if name == "Fake":
         from qea_ocr_tpu_torch.ocr.fake import FakeOcrBackend
         return FakeOcrBackend(is_eval=is_eval)

@@ -16,14 +16,24 @@ Weights are HWIO `(3, 3, Cin, Cout)`, as in the JAX package. Any Cin, Cout
 and H are taken; on the card W must be a multiple of 8 (the kernel's TMA
 copies want 16-byte row strides), where the JAX kernel wants 128.
 
-On a CUDA tensor every entry point launches the hand-written kernel of
-`csrc/conv_cmajor.cu` (through `ops/cuda/conv_cmajor_cuda.py`) or raises; on a
-CPU tensor it takes the plain version below. Both are differentiable through
-one `torch.autograd.Function`: dX is the same conv on the 180-degree-rotated
-weights with the channel axes swapped, so it runs through the same kernel,
-ignores cotangents on the output's halo rows and has zero halo rows itself;
-dW is a plain PyTorch weight-gradient convolution in float32 on the
-bfloat16-quantised operands (the JAX package leaves dW to XLA too).
+Every entry point goes through one custom operator,
+`torch.ops.qea_ocr.conv_flat(xf, w, shift, height, width)`, registered here
+with `torch.library.custom_op`. Its one implementation dispatches by the
+device of `xf`: a CUDA tensor launches the hand-written kernel of
+`csrc/conv_cmajor.cu` (through `ops/cuda/conv_cmajor_cuda.py`) or raises; a
+CPU tensor takes the plain version below. Its fake rule gives the output's
+shape without running anything, so `torch.export` traces the channel-major
+UNet into a graph that holds the operator as one node a conv. Loading such
+an artifact needs the operator registered first: `import
+qea_ocr_tpu_torch.ops.conv_cmajor` before `torch.export.load`. This module
+imports only `torch` and `ops/cuda/*`.
+
+Both routes are differentiable through one `torch.autograd.Function`: dX is
+the same conv on the 180-degree-rotated weights with the channel axes
+swapped, so it runs through the same operator, ignores cotangents on the
+output's halo rows and has zero halo rows itself; dW is a plain PyTorch
+weight-gradient convolution in float32 on the bfloat16-quantised operands
+(the JAX package leaves dW to XLA too).
 """
 
 from __future__ import annotations
@@ -78,15 +88,16 @@ def conv_flat_plain(xf: torch.Tensor, w: torch.Tensor,
     return F.pad(y, (0, 0, 1, 1)).reshape(y.shape[0], y.shape[1], -1)
 
 
-def _conv_flat(xf: torch.Tensor, w: torch.Tensor, shift: torch.Tensor | None,
-               height: int, width: int) -> torch.Tensor:
-    """Dispatch by the device of `xf`; no gradient."""
-    if tuple(w.shape[:3]) != (3, 3, xf.shape[1]):
-        raise ValueError(f"weights {tuple(w.shape)} do not fit activations "
-                         f"{tuple(xf.shape)}: want (3, 3, Cin, Cout)")
-    if xf.shape[2] != (height + 2) * width:
-        raise ValueError(f"activations {tuple(xf.shape)} are not padded-flat "
-                         f"for a {height}x{width} image")
+@torch.library.custom_op(
+    "qea_ocr::conv_flat", mutates_args=(),
+    schema="(Tensor xf, Tensor w, Tensor? shift, SymInt height, "
+           "SymInt width) -> Tensor")
+def conv_flat_op(xf: torch.Tensor, w: torch.Tensor,
+                 shift: torch.Tensor | None, height: int,
+                 width: int) -> torch.Tensor:
+    """The operator's implementation: dispatch by the device of `xf`, no
+    gradient. A CUDA tensor launches the kernel or raises; a CPU tensor
+    takes the plain version; any other device raises."""
     if xf.device.type == "cpu":
         return conv_flat_plain(xf, w, shift, height, width)
     if xf.device.type == "cuda":
@@ -95,6 +106,24 @@ def _conv_flat(xf: torch.Tensor, w: torch.Tensor, shift: torch.Tensor | None,
             None if shift is None else shift.float().contiguous(),
             height, width)
     raise ValueError(f"no channel-major conv for device {xf.device}")
+
+
+@conv_flat_op.register_fake
+def _conv_flat_fake(xf, w, shift, height, width):
+    return xf.new_empty((xf.shape[0], w.shape[3], (height + 2) * width),
+                        dtype=torch.bfloat16)
+
+
+def _conv_flat(xf: torch.Tensor, w: torch.Tensor, shift: torch.Tensor | None,
+               height: int, width: int) -> torch.Tensor:
+    """Check the shapes, then call the operator; no gradient."""
+    if tuple(w.shape[:3]) != (3, 3, xf.shape[1]):
+        raise ValueError(f"weights {tuple(w.shape)} do not fit activations "
+                         f"{tuple(xf.shape)}: want (3, 3, Cin, Cout)")
+    if xf.shape[2] != (height + 2) * width:
+        raise ValueError(f"activations {tuple(xf.shape)} are not padded-flat "
+                         f"for a {height}x{width} image")
+    return conv_flat_op(xf, w, shift, height, width)
 
 
 def _rot_w(w: torch.Tensor) -> torch.Tensor:

@@ -3,25 +3,27 @@
 
 The port's UNet checkpoint is loaded into the eval-mode UNet on `--device`,
 traced by `torch.export.export` for one fixed input shape (batch_size, 1, H,
-W) with the weights inside, and written by `torch.export.save`. The artifact
-holds ATen operations only: any process with a matching PyTorch loads and
-runs it without this package.
+W) with the weights inside, and written by `torch.export.save`.
+
+The UNet is built with `conv_impl="auto"`, as the JAX tool builds it. On the
+library route the artifact holds ATen operations only: any process with a
+matching PyTorch loads and runs it without this package. With
+`QEA_CONV_IMPL=cmajor` the shallow levels take the channel-major route, and
+the artifact holds one `torch.ops.qea_ocr.conv_flat` node a conv (8 for the
+four padded-flat blocks; `QEA_CMAJOR_FUSED`, read while tracing, says
+whether each folds its batch norm and ReLU): a process loads it only after
+it has registered that operator, which needs this package's
+`ops/conv_cmajor.py` and its CUDA kernel source, and nothing else of it.
 
 Run: python -m qea_ocr_tpu_torch.tools.export_model --prep_path <ckpt> \\
        --out prep.pt2 [--batch_size 8] [--doc_size 400 512] [--device cuda]
 
 Load elsewhere:
     import torch
+    import qea_ocr_tpu_torch.ops.conv_cmajor  # only for a cmajor artifact
     clean = torch.export.load("prep.pt2").module()
     cleaned = clean(images)   # (B, 1, H, W) float32 in [0, 1], on the
                               # device the artifact was exported on
-
-The UNet is built with `conv_impl="auto"`, as the JAX tool builds it. The
-channel-major conv kernel is bound through `ctypes` (`ops/cuda/build.py`),
-which `torch.export` cannot trace, so when `QEA_CONV_IMPL=cmajor` selects
-that route the export raises `NotImplementedError` before it writes
-anything, rather than exporting the library route in its place (ROADMAP.md
-Queue 1 item 10, the `torch.library` registration).
 """
 
 from __future__ import annotations
@@ -33,9 +35,18 @@ import os
 import torch
 
 from qea_ocr_tpu_torch import config as C
-from qea_ocr_tpu_torch.models.unet import UNet
+from qea_ocr_tpu_torch.models.unet import UNet, fused_by_env
 from qea_ocr_tpu_torch.utils.device import resolve_device
 from qea_ocr_tpu_torch.utils.io import load_checkpoint
+
+
+def conv_flat_nodes(exported) -> int:
+    """How many `qea_ocr::conv_flat` calls the exported graph holds (the
+    operator is registered by `ops/conv_cmajor.py`, which the UNet
+    imports)."""
+    target = torch.ops.qea_ocr.conv_flat.default
+    return sum(n.op == "call_function" and n.target == target
+               for n in exported.graph.nodes)
 
 
 def export_prep(prep_path: str, out_path: str, *, batch_size: int = 8,
@@ -46,11 +57,6 @@ def export_prep(prep_path: str, out_path: str, *, batch_size: int = 8,
     doc_size = tuple(doc_size or C.DOC_SIZE)
     dev = resolve_device(device)
     model = UNet(init_features=unet_features, conv_impl="auto")
-    if model.conv_impl == "cmajor":
-        raise NotImplementedError(
-            "QEA_CONV_IMPL=cmajor: the channel-major conv kernel is called "
-            "through ctypes, which torch.export cannot trace; it needs a "
-            "torch.library registration first (ROADMAP.md Queue 1 item 10)")
     load_checkpoint(prep_path, model)
     model = model.to(dev).eval()
     example = torch.zeros((batch_size, 1, *doc_size), device=dev)
@@ -59,7 +65,10 @@ def export_prep(prep_path: str, out_path: str, *, batch_size: int = 8,
     torch.export.save(exported, out_path)
     return {"out": out_path, "bytes": os.path.getsize(out_path),
             "input_shape": [batch_size, 1, *doc_size], "device": str(dev),
-            "conv_impl": model.conv_impl}
+            "conv_impl": model.conv_impl,
+            "cmajor_fused": (fused_by_env() if model.conv_impl == "cmajor"
+                             else None),
+            "conv_flat_nodes": conv_flat_nodes(exported)}
 
 
 def main(argv=None):

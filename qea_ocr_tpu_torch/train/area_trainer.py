@@ -28,8 +28,8 @@ over ranks, validation windows are split per rank with global metrics, rank
 0 writes the metrics, images and checkpoints, each rank its own side JSONs
 (`.pN`). Without a group it is a world of one.
 
-Not ported yet, raising `NotImplementedError`: `optuna_trial` (ROADMAP.md
-Queue 1 item 8).
+`optuna_trial` gets each epoch's validation accuracy and may prune the run
+(`sweeps/sweep.py`).
 """
 
 from __future__ import annotations
@@ -137,7 +137,7 @@ class AreaTrainerConfig:
     lstm_hidden: int = 256
     unet_features: int = 32
     use_wandb: bool = False
-    optuna_trial: object = None            # not ported yet (item 8)
+    optuna_trial: object = None
     # the port's addition
     device: str = "cuda"   # torch device; a missing GPU is an error
 
@@ -232,10 +232,6 @@ class TrainNNPrepArea:
 
     def __init__(self, cfg: AreaTrainerConfig):
         self.cfg = cfg
-        if cfg.optuna_trial:
-            raise NotImplementedError(
-                "optuna_trial is not ported to qea_ocr_tpu_torch yet "
-                "(ROADMAP.md Queue 1 item 8)")
         self.device = resolve_device(rank_device(cfg.device))
         # ----------------------------------------------------- topology
         self.group = None
@@ -562,6 +558,7 @@ class TrainNNPrepArea:
                 best_val_acc, best_val_epoch = ocr_acc, epoch
                 self.logger.update_summary({"best_val_acc": best_val_acc,
                                             "best_val_epoch": best_val_epoch})
+            self._maybe_optuna(ocr_acc * 100, epoch)
         print("Training Completed.")
         return best_val_acc, best_val_epoch
 
@@ -700,6 +697,18 @@ class TrainNNPrepArea:
         # recovers their sum, so the padded tail carries its own weight
         agg["loss"] += float(loss) * real
         return int(real)
+
+    def _maybe_optuna(self, accuracy, epoch):
+        trial = self.cfg.optuna_trial
+        if trial is None:
+            return
+        trial.report(accuracy, epoch)
+        if trial.should_prune():
+            try:
+                import optuna
+                raise optuna.TrialPruned()
+            except ImportError:
+                raise RuntimeError("optuna trial pruned")
 
     def _save_side_jsons(self, epoch: int):
         # side-state is the rank's own (crops are pinned to ranks): over

@@ -49,9 +49,9 @@ Parallelism (JAX `patch_trainer.py:308-423`), one process a GPU under a
     first of them queries the OCR, broadcasting the labels to the others:
     the ledger is that of `T = 0`. Checkpoints are gathered whole.
 
-Not ported yet, each raising `NotImplementedError`: `pruning_artifact` and
-`optuna_trial` (ROADMAP.md Queue 1 item 8: `pruning/` and `sweeps/`) and
-the real OCR back ends (item 9).
+`pruning_artifact` (a JSON of `pruning/prune.py`) restricts training to the
+artifact's documents, ahead of `train_subset_size`; `optuna_trial` gets each
+epoch's validation accuracy and may prune the run (`sweeps/sweep.py`).
 """
 
 from __future__ import annotations
@@ -181,7 +181,7 @@ class PatchTrainerConfig:
     lstm_hidden: int = 256
     unet_features: int = 32
     use_wandb: bool = False
-    optuna_trial: object = None            # not ported yet (item 8)
+    optuna_trial: object = None
     # the port's addition
     device: str = "cuda"   # torch device; a missing GPU is an error
 
@@ -191,11 +191,6 @@ class TrainNNPrep:
 
     def __init__(self, cfg: PatchTrainerConfig):
         self.cfg = cfg
-        for flag, item in (("pruning_artifact", 8), ("optuna_trial", 8)):
-            if getattr(cfg, flag):
-                raise NotImplementedError(
-                    f"{flag} is not ported to qea_ocr_tpu_torch yet "
-                    f"(ROADMAP.md Queue 1 item {item})")
         self.device = resolve_device(rank_device(cfg.device))
         self.charmap = CharMap.default()
         self.dirs = ExpDirs(cfg.exp_base_path).create()
@@ -445,7 +440,10 @@ class TrainNNPrep:
     def _training_indices(self) -> np.ndarray:
         cfg = self.cfg
         idx = np.arange(len(self.dataset))
-        if cfg.train_subset_size:
+        if cfg.pruning_artifact:
+            from qea_ocr_tpu_torch.pruning.prune import pruning_indices
+            idx = pruning_indices(self.dataset, cfg.pruning_artifact)
+        elif cfg.train_subset_size:
             rng = np.random.default_rng(cfg.random_seed)
             idx = rng.permutation(idx)[: cfg.train_subset_size]
         return idx
@@ -653,6 +651,7 @@ class TrainNNPrep:
                     "best_val_acc": best_val_acc,
                     "best_val_epoch": best_val_epoch,
                 })
+            self._maybe_optuna(ocr_acc * 100, epoch)
         print("Training Completed.")
         return best_val_acc, best_val_epoch
 
@@ -923,6 +922,18 @@ class TrainNNPrep:
         return real_docs, valid_strips
 
     # ------------------------------------------------------------------
+    def _maybe_optuna(self, accuracy, epoch):
+        trial = self.cfg.optuna_trial
+        if trial is None:
+            return
+        trial.report(accuracy, epoch)
+        if trial.should_prune():
+            try:
+                import optuna
+                raise optuna.TrialPruned()
+            except ImportError:
+                raise RuntimeError("optuna trial pruned")
+
     def _save_side_jsons(self, epoch: int):
         # side-state is the rank's own (documents are pinned to ranks):
         # over several ranks each writes its shard, suffixed .pN

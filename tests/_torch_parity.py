@@ -71,3 +71,29 @@ def parser_flags(parser):
             nargs=a.nargs, kind=type(a).__name__,
             choices=None if a.choices is None else tuple(a.choices))
     return out
+
+
+class RecordingTrial:
+    """An optuna-like trial for the trainers' `optuna_trial`: it records
+    each `report(value, epoch)` and asks to prune once epoch `prune_after`
+    has reported."""
+
+    def __init__(self, prune_after: int = 0):
+        self.reports = []
+        self.prune_after = prune_after
+
+    def report(self, value, step):
+        self.reports.append((value, step))
+
+    def should_prune(self):
+        return bool(self.reports) and self.reports[-1][1] >= self.prune_after
+
+
+def trial_pruned_type():
+    """What `_maybe_optuna` raises for a pruned trial: `optuna.TrialPruned`
+    where `optuna` imports (a stub of it too), else `RuntimeError`."""
+    try:
+        import optuna
+    except ImportError:
+        return RuntimeError
+    return optuna.TrialPruned

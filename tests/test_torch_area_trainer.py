@@ -25,7 +25,7 @@ from qea_ocr_tpu_torch.train.area_trainer import (
     AreaTrainerConfig, TrainNNPrepArea)
 from qea_ocr_tpu_torch.utils.io import OPTIM_SUFFIX, load_checkpoint
 
-import _torch_parity  # noqa: F401  (one torch thread)
+from _torch_parity import RecordingTrial, trial_pruned_type
 
 CORRUPTION = dict(noise_std=0.08, shading=0.1, salt_pepper=0.0)
 TRAIN, VAL, B = 16, 10, 8
@@ -166,12 +166,16 @@ def test_eval_area_roundtrip(area_run):
     assert out["test_cer"] >= 0.0
 
 
-@pytest.mark.parametrize("flag,value,item", [
-    ("optuna_trial", object(), "item 8")])
-def test_unported_options_raise_naming_the_roadmap(tmp_path, flag, value,
-                                                   item):
-    with pytest.raises(NotImplementedError, match=item):
-        TrainNNPrepArea(tiny_cfg(tmp_path, **{flag: value}))
+def test_optuna_trial_reports_and_prunes(tmp_path):
+    """Each epoch's validation accuracy (in %) goes to the trial; a trial
+    that asks to prune after epoch 0 ends the run there."""
+    trial = RecordingTrial(prune_after=0)
+    trainer = TrainNNPrepArea(tiny_cfg(tmp_path, optuna_trial=trial))
+    with pytest.raises(trial_pruned_type()):
+        trainer.train()
+    recs = _records(tmp_path)
+    assert len(recs) == 1
+    assert trial.reports == [(recs[0]["Fake_accuracy"] * 100, 0)]
 
 
 def test_unknown_ocr_and_missing_gpu_raise(tmp_path, monkeypatch):

@@ -111,10 +111,31 @@ def test_area_main_trains_on_the_synthetic_world(tmp_path, capsys):
     assert glob.glob(str(tmp_path / "ckpts" / "Prep_model_0_*"))
 
 
-def test_unported_flags_parse_and_then_raise(tmp_path):
+def test_cli_trains_on_the_pruned_documents(tmp_path, capsys):
+    """`--pruning_artifact` (documents 0 and 2 of 4): the trainer's
+    documents are those, and the ledger counts only their strips."""
+    from qea_ocr_tpu_torch.data.datasets import PatchDocuments
+
+    docs = PatchDocuments.synthetic(4, seed=42, n_strips=3, max_strips=4,
+                                    doc_size=(96, 128))
+    art = tmp_path / "pruned.json"
+    art.write_text(json.dumps({
+        docs.samples[i].doc_name.replace(os.sep, "_"): 0.5 for i in (0, 2)}))
+    trainer = tcli.main(ARGV + ["--exp_base_path", str(tmp_path / "x"),
+                                "--device", "cpu", "--pruning_artifact",
+                                str(art)])
+    assert "Training Completed." in capsys.readouterr().out
+    assert trainer.train_indices.tolist() == [0, 2]
+    with open(tmp_path / "x" / "metrics.jsonl") as f:
+        rec = json.loads(f.readline())
+    # ceil(3 * (1 - 0.5)) = 2 strips a document x 2 documents x 2 inner
+    # rounds; validation reads all 2 x 3 strips
+    assert rec["Black-Box Calls"] == 8
+    assert rec["Train + Val BB Calls"] == 8 + 6
+
+
+def test_parallel_flags_without_a_group_raise(tmp_path):
     base = ["--exp_base_path", str(tmp_path), "--device", "cpu"]
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tcli.main(base + ARGV + ["--pruning_artifact", "p.json"])
     # without a process group the parallel flags check their world
     with pytest.raises(ValueError, match="needs a process group"):
         tcli.main(base + ARGV + ["--tensor_parallel", "2"])

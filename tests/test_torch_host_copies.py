@@ -83,9 +83,26 @@ def _fake_ocr():
     assert t_ocr.count_calls == j_ocr.count_calls == 12
     assert t_ocr.get_string(strips[0]) == j_ocr.get_string(strips[0])
     assert t_get_ocr_helper(None) is None and t_get_ocr_helper("nope") is None
-    for name in ("Tesseract", "EasyOCR", "gvision"):
-        with pytest.raises(NotImplementedError, match="Queue 1"):
-            t_get_ocr_helper(name)
+
+
+def _ocr_factory():
+    """`get_ocr_helper` for every name: the same back end class, or the
+    same `ImportError` where the engine is missing (as here for all three
+    real engines)."""
+    for name in ("Tesseract", "EasyOCR", "gvision", "Fake", None, "nope"):
+        for is_eval in (False, True):
+            out = []
+            for factory in (j_get_ocr_helper, t_get_ocr_helper):
+                try:
+                    helper = factory(name, is_eval=is_eval)
+                except ImportError as e:
+                    out.append(("ImportError", str(e)))
+                else:
+                    out.append((type(helper).__name__,
+                                getattr(helper, "is_eval", None)))
+            assert out[0] == out[1], (name, out)
+            if name == "Fake":
+                assert out[1] == ("FakeOcrBackend", is_eval)
 
 
 def _batch_iterator():
@@ -340,6 +357,7 @@ def _reference_pickle():
 
 
 @pytest.mark.parametrize("case", [_config, _charmap, _documents, _fake_ocr,
+                                  _ocr_factory,
                                   _state_dicts, _batch_iterator, _ocr_engine,
                                   _words, _native, _cer_of_batch,
                                   _reference_pickle, _multihost],

@@ -15,7 +15,9 @@ Export (`qea_ocr_tpu_torch/tools/export_model.py`): a UNet(4) checkpoint
 exported at (2, 1, 64, 64) is loaded by a Python process that cannot import
 the port, and its output equals the eager eval forward on the same input (on
 the CPU both run the same bfloat16 operations: abs 1e-6, where the JAX export
-test allows 2e-2). `QEA_CONV_IMPL=cmajor` raises before anything is written.
+test allows 2e-2). With `QEA_CONV_IMPL=cmajor` the artifact holds the conv
+operator, one `qea_ocr::conv_flat` node a conv (8), and reproduces the
+eager channel-major forward bitwise.
 """
 
 import json
@@ -183,7 +185,8 @@ def test_export_reloads_without_the_package(prep_ckpt, tmp_path, capsys):
     info = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
     assert info == {"out": str(out), "bytes": out.stat().st_size,
                     "input_shape": [2, 1, *DOC], "device": "cpu",
-                    "conv_impl": "xla"}
+                    "conv_impl": "xla", "cmajor_fused": None,
+                    "conv_flat_nodes": 0}
     x = np.random.default_rng(4).random((2, 1, *DOC), np.float32)
     np.save(tmp_path / "x.npy", x)
     # -I: no PYTHONPATH, no current directory; run from outside the repo
@@ -206,11 +209,26 @@ def test_export_reloads_without_the_package(prep_ckpt, tmp_path, capsys):
     assert np.abs(got - want).max() <= 1e-6
 
 
-def test_export_refuses_the_conv_kernel_route(prep_ckpt, tmp_path,
-                                              monkeypatch):
+@pytest.mark.parametrize("fused", ["1", "0"])
+def test_cmajor_export_writes_the_conv_operator(prep_ckpt, tmp_path,
+                                                monkeypatch, capsys, fused):
+    """`QEA_CONV_IMPL=cmajor`: the artifact holds 8 `conv_flat` nodes, fused
+    or not, and gives the eager channel-major forward bitwise."""
     monkeypatch.setenv("QEA_CONV_IMPL", "cmajor")
-    with pytest.raises(NotImplementedError, match="torch.library"):
-        export_model.export_prep(prep_ckpt, str(tmp_path / "m.pt2"),
-                                 batch_size=2, doc_size=DOC, unet_features=4,
-                                 device="cpu")
-    assert not list(tmp_path.iterdir())
+    monkeypatch.setenv("QEA_CMAJOR_FUSED", fused)
+    out = tmp_path / "m.pt2"
+    export_model.main(["--prep_path", prep_ckpt, "--out", str(out),
+                       "--batch_size", "2", "--doc_size", "16", "256",
+                       "--unet_features", "4", "--device", "cpu"])
+    info = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert info["conv_impl"] == "cmajor" and info["conv_flat_nodes"] == 8
+    assert info["cmajor_fused"] is (fused == "1")
+    assert info["bytes"] == out.stat().st_size
+    loaded = torch.export.load(str(out))
+    assert export_model.conv_flat_nodes(loaded) == 8
+    model = UNet(init_features=4, conv_impl="cmajor")
+    load_checkpoint(prep_ckpt, model)
+    x = torch.from_numpy(
+        np.random.default_rng(5).random((2, 1, 16, 256), np.float32))
+    with torch.no_grad():
+        assert torch.equal(loaded.module()(x), model.eval()(x))

@@ -42,7 +42,11 @@ def test_port_modules_never_import_jax():
                 "cli.eval_crnn", "cli.eval_prep", "utils.native",
                 "tools.cer_seed", "tools.quality_run", "train.area_trainer",
                 "cli.area_cli", "tools.import_torch", "tools.export_model",
-                "parallel.mesh", "parallel.multihost", "parallel.tp"):
+                "parallel.mesh", "parallel.multihost", "parallel.tp",
+                "pruning.prune", "tools.prune_cli", "tools.cer_analysis",
+                "sweeps.sweep", "ocr.tesseract", "ocr.easyocr_backend",
+                "ocr.gvision", "ocr.stub_engines",
+                "tools.build_patch_dataset"):
         assert "qea_ocr_tpu_torch." + new in mods, new
     code = ("import importlib, sys\n"
             f"for m in {mods!r}: importlib.import_module(m)\n"

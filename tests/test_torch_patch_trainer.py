@@ -20,7 +20,7 @@ from qea_ocr_tpu_torch.train.patch_trainer import (
     PatchTrainerConfig, TrainNNPrep)
 from qea_ocr_tpu_torch.utils.io import OPTIM_SUFFIX, load_checkpoint
 
-import _torch_parity  # noqa: F401  (one torch thread)
+from _torch_parity import RecordingTrial, trial_pruned_type
 
 DOCS, VAL_DOCS, STRIPS = 4, 2, 3
 
@@ -333,13 +333,38 @@ def test_conv_impl_env_reroutes_the_twin_only(tmp_path, monkeypatch):
     assert np.isfinite(rec["train_loss"]) and np.isfinite(rec["val_loss"])
 
 
-@pytest.mark.parametrize("flag,value,item", [
-    ("pruning_artifact", "x.json", "item 8"),
-    ("optuna_trial", object(), "item 8")])
-def test_unported_options_raise_naming_the_roadmap(tmp_path, flag, value,
-                                                   item):
-    with pytest.raises(NotImplementedError, match=item):
-        TrainNNPrep(tiny_cfg(tmp_path, **{flag: value}))
+def test_pruning_artifact_selects_the_training_documents(tmp_path):
+    """`pruning_artifact` wins over `train_subset_size` and gives the
+    documents the JAX package's `pruning_indices` gives on the same ones."""
+    from qea_ocr_tpu.data.datasets import PatchDocuments as JDocs
+    from qea_ocr_tpu.pruning.prune import pruning_indices as j_indices
+
+    cfg = tiny_cfg(tmp_path)
+    jdocs = JDocs.synthetic(DOCS, seed=cfg.random_seed,
+                            n_strips=STRIPS, max_strips=4,
+                            corruption=cfg.corruption, doc_size=(96, 128))
+    keys = [s.doc_name.replace(os.sep, "_") for s in jdocs.samples]
+    art = tmp_path / "pruned.json"
+    art.write_text(json.dumps({keys[3]: 0.9, keys[1]: 0.5}))
+    trainer = TrainNNPrep(tiny_cfg(tmp_path, pruning_artifact=str(art),
+                                   train_subset_size=1))
+    want = j_indices(jdocs, str(art))
+    np.testing.assert_array_equal(trainer.train_indices, want)
+    np.testing.assert_array_equal(trainer.train_indices, [1, 3])
+    assert trainer.train_set_size == 2
+    np.testing.assert_array_equal(trainer._local_train_indices, [1, 3])
+
+
+def test_optuna_trial_reports_and_prunes(tmp_path):
+    """Each epoch's validation accuracy (in %) goes to the trial; a trial
+    that asks to prune after epoch 0 ends the run there."""
+    trial = RecordingTrial(prune_after=0)
+    trainer = TrainNNPrep(tiny_cfg(tmp_path, optuna_trial=trial))
+    with pytest.raises(trial_pruned_type()):
+        trainer.train()
+    recs = _records(tmp_path)
+    assert len(recs) == 1
+    assert trial.reports == [(recs[0]["Fake_accuracy"] * 100, 0)]
 
 
 def test_parallel_flags_without_a_process_group(tmp_path):
@@ -353,8 +378,8 @@ def test_parallel_flags_without_a_process_group(tmp_path):
         TrainNNPrep(tiny_cfg(tmp_path, tensor_parallel=2))
 
 
-def test_unported_ocr_and_missing_gpu_raise(tmp_path, monkeypatch):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+def test_missing_ocr_engine_and_gpu_raise(tmp_path, monkeypatch):
+    with pytest.raises(ImportError, match="tesserocr"):
         TrainNNPrep(tiny_cfg(tmp_path, ocr="Tesseract"))
     with pytest.raises(ValueError, match="unknown OCR"):
         TrainNNPrep(tiny_cfg(tmp_path, ocr="nope"))
