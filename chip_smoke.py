@@ -35,7 +35,19 @@ Phases; any failure raises, so the exit code is non-zero:
                  gradient exactly 0, the gradient bitwise repeatable; the
                  forward without alpha at T = 200, L = 511; a T (120) whose
                  row does not fit the backward's shared memory must raise
-                 before any launch. Median times: each kernel's device time
+                 before any launch. Both CTC kernels again with per-row
+                 valid steps T_b (`logit_lengths`, ragged in [1, 31], at
+                 B = 128 and 1536; and where the forward's emission ring
+                 has several chunks: both at T = 100, B = 64 and the
+                 forward without alpha at T = 200, L = 511, with rows that
+                 end inside the first chunk, on chunk boundaries and
+                 inside the last): against their plain versions, rows that
+                 fit T but not their T_b at exactly 1e5 with gradient 0,
+                 the gradient exactly 0 past each T_b, and every row bit
+                 for bit equal to the kernels on the rows cut to their T_b
+                 steps; lengths outside [1, T] refused before any launch;
+                 both kernels' device time with lengths null, all T and
+                 ragged, in turns. Median times: each kernel's device time
                  (launches queued behind a spin, so Python's launch cost is
                  hidden; the CTC forward with alpha, as the training step
                  calls it, and without), its time as one call from Python,
@@ -197,6 +209,22 @@ Phases; any failure raises, so the exit code is non-zero:
                  documents written as PNG files: the copies byte for byte,
                  the GVision mock's box in each sidecar, and the port's
                  `PatchDocuments` reading both back with one strip each.
+ 12. quality_area - `tools/quality_run_area.main` (the area quality runner)
+                 on the card at a tiny world, from the pipeline phase's
+                 warmup checkpoint: 128 + 64 crops, one pretraining and one
+                 area epoch at the script's budget (0.75) and batch (64),
+                 cosine rate and EMA 0.995, then `EvalPrep` on 64 crops
+                 with the originals. CTC forward 7, backward 6, nothing
+                 else; the summary's keys, ledger (64 + 64) and ranges.
+ 13. launcher  - `qea_ocr_tpu_torch/launch/run_area_training.sh` run by
+                 bash as a user would, with OCR=Fake, its fixed flags and,
+                 through "$@", one epoch on 128 + 64 synthetic crops from
+                 the warmup's checkpoint; its `--cers_ocr_path` file
+                 written first by `tools/cer_seed` (area mode). The
+                 `python` first on its PATH runs the module as Python
+                 would and writes the kernels' launch counts at exit: CTC
+                 forward 7, backward 6, nothing else; the ledger (20) and
+                 the fixed flags in the run's params.txt.
 
 The line before last is the card's name and power limit, and before it a
 JSON line with each kernel's launches, error, times and bound; the last line
@@ -285,6 +313,12 @@ SWEEP_PATCH_TRIALS, SWEEP_CRNN_TRIALS = 2, 1
 # within the export bound
 PARALLEL_FIRST_RTOL, PARALLEL_EPOCH_RTOL = 1e-5, 1e-3
 PARALLEL_DOC_ATOL = EXPORT_MAX_ERR
+# the area quality runner and the area launcher at a tiny world: crops for
+# training, validation and evaluation (a training batch is the script's 64)
+QUALITY_AREA_ENV = dict(TRAIN_SIZE="128", VAL_SIZE="64", EVAL_SIZE="64",
+                        AREA_EPOCHS="1", PREP_PRETRAIN="1",
+                        LR_SCHED_PREP="cosine", PREP_EMA="0.995")
+LAUNCHER_TRAIN, LAUNCHER_VAL = 128, 64
 EPOCH_LOSS_KEYS = ("train_loss", "val_loss", "CRNN_loss")
 LEDGER_KEYS = ("Black-Box Calls", "Total Black-Box Calls",
                "Train + Val BB Calls", "Total Train + Val BB Calls")
@@ -565,22 +599,27 @@ def _ctc_library_ms(torch, lp, labels, lengths, g, V):
     return fwd_ms, bwd_ms
 
 
-def hold_ctc(torch, lp, labels, lengths, g, pad_id, where: str):
+def hold_ctc(torch, lp, labels, lengths, g, pad_id, where: str,
+             logit_lengths=None):
     """The CTC forward with alpha and the backward on its outputs against
     `_alpha_plain` and `ctc_grad_plain` on the same tensors: NLL, alpha over
-    the band the kernel computes and d log-probs, each to KERNEL_REL_TOL
-    relative with a floor of 1, all finite. Returns both sides' outputs and
-    the largest errors."""
+    the band the kernel computes (at each row's steps t < T_b with
+    `logit_lengths`: the kernel leaves the others unwritten) and d
+    log-probs, each to KERNEL_REL_TOL relative with a floor of 1, all
+    finite. Returns both sides' outputs and the largest errors."""
     from qea_ocr_tpu_torch.ops.cuda import ctc_cuda
 
     T, B = lp.shape[:2]
     L = labels.shape[1]
     nll, alpha = ctc_cuda.ctc_nll_cuda(lp, labels, lengths, pad_id,
-                                       want_alpha=True)
-    d_lp = ctc_cuda.ctc_grad_cuda(lp, labels, lengths, alpha, nll, g, pad_id)
-    p_nll, p_alpha = ctc_cuda._alpha_plain(lp, labels, lengths, pad_id, 0)
+                                       want_alpha=True,
+                                       logit_lengths=logit_lengths)
+    d_lp = ctc_cuda.ctc_grad_cuda(lp, labels, lengths, alpha, nll, g, pad_id,
+                                  logit_lengths=logit_lengths)
+    p_nll, p_alpha = ctc_cuda._alpha_plain(lp, labels, lengths, pad_id, 0,
+                                           logit_lengths)
     d_plain = ctc_cuda.ctc_grad_plain(lp, labels, lengths, p_alpha, p_nll, g,
-                                      pad_id)
+                                      pad_id, logit_lengths=logit_lengths)
     torch.cuda.synchronize()
     if not (torch.isfinite(nll).all() and torch.isfinite(d_lp).all()):
         raise AssertionError(f"CTC kernels at {where}: non-finite values")
@@ -590,12 +629,18 @@ def hold_ctc(torch, lp, labels, lengths, g, pad_id, where: str):
     if tuple(alpha.shape) != (B, T, n):
         raise AssertionError(f"alpha {tuple(alpha.shape)}, want {(B, T, n)}")
     cols = min(n, 2 * L + 1)
+    written = torch.ones((B, T, 1), dtype=torch.bool, device=lp.device) \
+        if logit_lengths is None else (
+            torch.arange(T, device=lp.device)[None, :, None]
+            < logit_lengths.long()[:, None, None])
+    kernel_alpha = torch.where(written, alpha[..., :cols], 0.0)
+    plain_alpha = torch.where(written, p_alpha.permute(1, 0, 2)[..., :cols],
+                              0.0)
 
     def rel(got, want):
         return float(((got - want).abs() / want.abs().clamp(min=1)).max())
     errs = dict(nll_rel=rel(nll, p_nll),
-                alpha_rel=rel(alpha[..., :cols],
-                              p_alpha.permute(1, 0, 2)[..., :cols]),
+                alpha_rel=rel(kernel_alpha, plain_alpha),
                 grad_rel=rel(d_lp, d_plain),
                 nll_abs=float((nll - p_nll).abs().max()),
                 grad_abs=float((d_lp - d_plain).abs().max()))
@@ -777,6 +822,276 @@ def check_ctc_long(torch, dev) -> float:
     return err
 
 
+def _needs(label) -> int:
+    """Steps a CTC label needs: one a symbol, and a blank between repeats."""
+    return len(label) + sum(a == b for a, b in zip(label[:-1], label[1:]))
+
+
+def _ragged_ctc_inputs(torch, dev, B, seed):
+    """`_ctc_inputs` at T=31 with each row's valid steps T_b drawn in
+    [1, 31] from the seed, and fixed rows beside its own: the empty label at
+    T_b = 1; 10 repeats of one symbol (19 steps needed) at 18, where only
+    its T_b is too short, and again at 19, where it just fits; the 6-symbol
+    row with a symbol three times at 6; the 30-symbol row at T_b = T; two
+    random rows at T_b = T and one at one step fewer than it needs.
+    Returns the inputs, T_b and each row's feasibility, computed here on the
+    host from the labels."""
+    lp, labels, lengths, g, V = _ctc_inputs(torch, dev, B, seed)
+    T = lp.shape[0]
+    rng = np.random.default_rng(seed + 1000)
+    lab = labels.cpu().numpy()
+    ln = lengths.cpu().numpy()
+    tb = rng.integers(1, T + 1, B).astype(np.int32)
+    lab[7], ln[7] = V, 10
+    lab[7, :10] = 42
+    for row, steps in ((0, 1), (1, 18), (5, 6), (6, T), (7, 19), (8, T),
+                       (9, T)):
+        tb[row] = steps
+    row10 = [int(v) for v in lab[10, :ln[10]]]
+    tb[10] = max(1, _needs(row10) - 1)
+    feasible = np.array([
+        0 <= n <= lab.shape[1] and _needs([int(v) for v in lab[i, :n]])
+        <= tb[i] for i, n in enumerate(ln)])
+    return (lp, torch.from_numpy(lab).to(dev), torch.from_numpy(ln).to(dev),
+            g, V, torch.from_numpy(tb).to(dev), feasible)
+
+
+def _ctc_timed_launches(torch, lp, labels, lengths, g, V, logit_lengths):
+    """Two closures that launch the CTC forward with alpha and the backward
+    through the wrappers' own launch helpers, which take lengths checked
+    once here and read nothing back to the host (so the spin timing
+    holds): for timing only, outside any counted run."""
+    from qea_ocr_tpu_torch.ops.cuda import ctc_cuda
+
+    ll = None if logit_lengths is None else ctc_cuda.check_logit_lengths(
+        lp, logit_lengths)
+    nll, alpha = ctc_cuda._nll_launch(lp, labels, lengths, V, 0, True, ll)
+
+    def fwd():
+        return ctc_cuda._nll_launch(lp, labels, lengths, V, 0, True, ll)
+
+    def bwd():
+        return ctc_cuda._grad_launch(lp, labels, lengths, alpha, nll, g, V, 0,
+                                     ll)
+    return fwd, bwd
+
+
+def _hold_cut_rows(torch, lp, labels, lengths, g, V, tb, nll, d_lp=None):
+    """Each row of a ragged run against the same kernels on the rows cut to
+    their first T_b steps with no lengths, grouped by T_b: the forward
+    (with alpha and the backward where `d_lp` is given, without alpha
+    otherwise). Returns the largest difference; bit for bit is expected."""
+    from qea_ocr_tpu_torch.ops.cuda import ctc_cuda
+
+    worst = 0.0
+    for steps in sorted(set(tb.tolist())):
+        rows = (tb == steps).nonzero()[:, 0]
+        cut = lp[:steps, rows].contiguous()
+        c_lab, c_len = labels[rows].contiguous(), lengths[rows].contiguous()
+        if d_lp is None:
+            c_nll = ctc_cuda.ctc_nll_cuda(cut, c_lab, c_len, V)
+            worst = max(worst, float((c_nll - nll[rows]).abs().max()))
+            continue
+        c_nll, c_alpha = ctc_cuda.ctc_nll_cuda(cut, c_lab, c_len, V,
+                                               want_alpha=True)
+        c_grad = ctc_cuda.ctc_grad_cuda(cut, c_lab, c_len, c_alpha, c_nll,
+                                        g[rows].contiguous(), V)
+        worst = max(worst, float((c_nll - nll[rows]).abs().max()),
+                    float((c_grad - d_lp[:steps, rows]).abs().max()))
+    return worst
+
+
+def _fwd_chunk(T, L) -> int:
+    """The forward's emission-ring chunk in steps, as `qea_ctc_alpha_fwd`
+    computes it (48 KiB of shared memory, at most 32 steps)."""
+    from qea_ocr_tpu_torch.ops.cuda import ctc_cuda
+
+    n = ctc_cuda.band_threads(T, L)
+    chunk = min((48 * 1024 // 4 - 2 * n) // (2 * (n + 1)), 32)
+    return T if T <= chunk else chunk
+
+
+def check_ctc_lengths_chunks(torch, dev) -> dict:
+    """Ragged T_b where the forward's emission ring has several chunks, so
+    that a row's own chunk count decides its copies and waits: (1) both
+    kernels at T = 100, V = 95, L = 100, B = 64 (the largest T the
+    backward's shared memory takes here; chunks of 26 steps), T_b drawn in
+    [1, T] and fixed rows ending inside the first chunk, on each chunk
+    boundary, one step past it, and inside the last chunk; (2) the forward
+    without alpha at `check_ctc_long`'s T = 200, L = 511 (chunks of 13), its
+    four rows at T_b = T and again at T_b inside the first chunk, on a
+    boundary, and inside the last chunk, where the 200-symbol row is then
+    infeasible. Both held to plain within KERNEL_REL_TOL and, bit for bit,
+    to the kernels on the rows cut to T_b."""
+    from qea_ocr_tpu_torch.ops.cuda import ctc_cuda
+
+    out = dict(nll_abs=0.0, grad_abs=0.0, truncated_max_diff=0.0)
+    T, L = 100, 100
+    chunk = _fwd_chunk(T, L)
+    if not 1 < chunk < T:
+        raise AssertionError(f"T={T} L={L} takes one chunk ({chunk} steps)")
+    lp, labels, lengths, g, V = _ctc_inputs(torch, dev, 64, 29, T)
+    rng = np.random.default_rng(1029)
+    tb = rng.integers(1, T + 1, lp.shape[1]).astype(np.int32)
+    fixed = [1, chunk // 2, chunk - 1, chunk, chunk + 1, 2 * chunk,
+             2 * chunk + 1, 3 * chunk, 3 * chunk + 1, T - 1, T, T]
+    tb[:len(fixed)] = fixed
+    tb = torch.from_numpy(tb).to(dev)
+    (nll, _, d_lp, p_nll, *_), errs = hold_ctc(
+        torch, lp, labels, lengths, g, V, f"T={T} ragged T_b",
+        logit_lengths=tb)
+    live = nll < ctc_cuda.INFEASIBLE_NLL
+    past = torch.arange(T, device=dev)[:, None] >= tb.long()[None, :]
+    if not torch.equal(live, p_nll < ctc_cuda.INFEASIBLE_NLL) \
+            or float(d_lp[past].abs().sum()) != 0.0 \
+            or float(d_lp[:, ~live].abs().sum()) != 0.0:
+        raise AssertionError(f"ragged T_b at T={T}: feasibility differs from "
+                             "plain or a gradient is not 0 past T_b or on "
+                             "an infeasible row")
+    worst = _hold_cut_rows(torch, lp, labels, lengths, g, V, tb, nll, d_lp)
+    log(f"[kernels] ctc with ragged logit_lengths T={T} V={V} L={L} "
+        f"B={lp.shape[1]} (ring chunks of {chunk} steps; T_b "
+        f"{sorted(set(fixed))} and drawn; {int((~live).sum())} rows "
+        f"infeasible): vs plain {json.dumps(errs)}; gradient exactly 0 past "
+        f"T_b and on infeasible rows; largest difference from the kernels "
+        f"on the rows cut to T_b: {worst:.3g}")
+    if worst != 0.0:
+        raise AssertionError(f"ragged T_b at T={T}: the kernels differ from "
+                             f"the rows cut to T_b by {worst}")
+    out.update(nll_abs=errs["nll_abs"], grad_abs=errs["grad_abs"],
+               truncated_max_diff=worst)
+
+    # the forward without alpha at T = 200, L = 511, as check_ctc_long
+    T, V, L = 200, 20, 511
+    chunk = _fwd_chunk(T, L)
+    rng = np.random.default_rng(26)
+    logits = torch.from_numpy(rng.normal(size=(T, 4, V)).astype(np.float32))
+    lp4 = torch.log_softmax(3 * logits, dim=2)
+    lab4 = np.full((4, L), V, np.int32)             # pad_id = V
+    lab4[1, :150] = rng.integers(1, V, 150)
+    lab4[2, :200] = 1 + np.arange(200) % 2
+    lab4[3] = rng.integers(1, V, L)
+    len4 = np.array([0, 150, 200, 511], np.int32)
+    lp = torch.cat([lp4, lp4], dim=1).contiguous().to(dev)
+    labels = torch.from_numpy(np.concatenate([lab4, lab4])).to(dev)
+    lengths = torch.from_numpy(np.concatenate([len4, len4])).to(dev)
+    # T - 2 and T - 1 lie inside the last chunk
+    if (T - 2) // chunk != (T - 1) // chunk:
+        raise AssertionError(f"T={T}: the last chunk of {chunk} has 1 step")
+    tb = torch.tensor([T] * 4 + [chunk - 1, 2 * chunk, T - 2, T - 1],
+                      dtype=torch.int32, device=dev)
+    got = ctc_cuda.ctc_nll_cuda(lp, labels, lengths, V, logit_lengths=tb)
+    want = ctc_cuda.ctc_nll_plain(lp, labels, lengths, V, logit_lengths=tb)
+    alone = ctc_cuda.ctc_nll_cuda(lp[:, :4].contiguous(), labels[:4],
+                                  lengths[:4], V)
+    torch.cuda.synchronize()
+    rel = float(((got - want).abs() / want.abs().clamp(min=1)).max())
+    if rel > KERNEL_REL_TOL or not torch.equal(got[:4], alone) \
+            or not (float(got[7]) == 1e5 == float(want[7])) \
+            or not bool(torch.isfinite(got).all()):
+        raise AssertionError(f"ragged CTC forward at T={T} L={L}: kernel "
+                             f"{got.tolist()}, plain {want.tolist()}, the "
+                             f"rows at T_b = T alone {alone.tolist()}")
+    worst = _hold_cut_rows(torch, lp, labels, lengths, g=None, V=V, tb=tb,
+                           nll=got)
+    err = float((got - want).abs().max())
+    log(f"[kernels] ctc forward without alpha with ragged logit_lengths "
+        f"T={T} V={V} L={L} B=8 (ring chunks of {chunk} steps; T_b "
+        f"{tb.tolist()}): vs plain max abs err {err:.3g}, max rel err "
+        f"{rel:.3g}; the rows at T_b = T equal to the kernel without "
+        f"lengths; the 200-symbol row at T_b = {T - 1} exactly 1e5; largest "
+        f"difference from the kernel on the rows cut to T_b: {worst:.3g}")
+    if worst != 0.0:
+        raise AssertionError(f"ragged T_b at T={T} L={L}: the kernel differs "
+                             f"from the rows cut to T_b by {worst}")
+    out["nll_abs"] = max(out["nll_abs"], err)
+    return out
+
+
+def check_ctc_lengths(torch, dev, card):
+    """Both CTC kernels with per-row valid steps T_b (`logit_lengths`) at
+    B = 128 and 1536 (T=31, V=95, L=100; `_ragged_ctc_inputs`): against
+    their plain versions to KERNEL_REL_TOL; rows no alignment fits in T_b
+    steps exactly 1e5 with gradient 0, the gradient exactly 0 at every
+    t >= T_b; and each row against the same kernels run on the rows cut to
+    their first T_b steps with no lengths (grouped by T_b), where bit for
+    bit is expected. T_b outside [1, T] is refused before any launch. The
+    device time of both kernels with lengths null, all T_b = T and ragged,
+    in turns. Then the same holds where the forward's ring has several
+    chunks (`check_ctc_lengths_chunks`). Returns the largest errors against
+    plain and the times."""
+    from qea_ocr_tpu_torch.ops.cuda import ctc_cuda
+
+    out = dict(nll_abs=0.0, grad_abs=0.0, truncated_max_diff=0.0)
+    for B, seed in ((D * S, 27), (1536, 28)):
+        lp, labels, lengths, g, V, tb, feasible = _ragged_ctc_inputs(
+            torch, dev, B, seed)
+        T = lp.shape[0]
+        (nll, alpha, d_lp, *_), errs = hold_ctc(
+            torch, lp, labels, lengths, g, V, f"B={B} ragged T_b",
+            logit_lengths=tb)
+        out["nll_abs"] = max(out["nll_abs"], errs["nll_abs"])
+        out["grad_abs"] = max(out["grad_abs"], errs["grad_abs"])
+        live = torch.from_numpy(feasible).to(dev)
+        if not bool((nll[~live] == 1e5).all()) \
+                or not bool((nll[live] < 1e5).all()):
+            raise AssertionError(f"ragged T_b at B={B}: feasibility of the "
+                                 "rows is not the labels'")
+        past = torch.arange(T, device=dev)[:, None] >= tb.long()[None, :]
+        if float(d_lp[past].abs().sum()) != 0.0 \
+                or float(d_lp[:, ~live].abs().sum()) != 0.0:
+            raise AssertionError(f"ragged T_b at B={B}: gradient not 0 past "
+                                 "T_b or on an infeasible row")
+        # each row against the kernels on the rows cut to their T_b steps
+        worst = _hold_cut_rows(torch, lp, labels, lengths, g, V, tb, nll,
+                               d_lp)
+        out["truncated_max_diff"] = max(out["truncated_max_diff"], worst)
+        log(f"[kernels] ctc with ragged logit_lengths T={T} V={V} L=100 "
+            f"B={B} (T_b {int(tb.min())}..{int(tb.max())}, "
+            f"{int((~live).sum())} rows infeasible at their T_b): vs plain "
+            f"{json.dumps(errs)}; gradient exactly 0 past T_b and on "
+            f"infeasible rows; largest difference from the kernels on the "
+            f"rows cut to T_b: {worst:.3g}")
+        if worst != 0.0:
+            raise AssertionError(f"ragged T_b at B={B}: the kernels differ "
+                                 f"from the rows cut to T_b by {worst}")
+        # the device time of both kernels, lengths null / all T / ragged,
+        # through the launch helpers (lengths checked once, outside the
+        # timed calls: the check reads them back to the host)
+        full = torch.full_like(tb, T)
+        ms = {}
+        for case, ll in (("null", None), ("all_t", full), ("ragged", tb),
+                         ("ragged", tb), ("all_t", full), ("null", None)):
+            fwd, bwd = _ctc_timed_launches(torch, lp, labels, lengths, g, V,
+                                           ll)
+            ms.setdefault(f"fwd_{case}", []).append(device_ms(torch, fwd))
+            ms.setdefault(f"bwd_{case}", []).append(device_ms(torch, bwd))
+        ms = {k: min(v) for k, v in ms.items()}
+        log(f"[kernels] ctc B={B} device ms by logit_lengths (forward with "
+            f"alpha / backward, best of two in turns null, all T, ragged, "
+            f"ragged, all T, null): " + ", ".join(
+                f"{c} {ms['fwd_' + c]:.5f} / {ms['bwd_' + c]:.5f}"
+                for c in ("null", "all_t", "ragged")) + f" ({card})")
+        out[f"ms_b{B}"] = ms
+
+    # refused before any launch
+    counts = (ctc_cuda.launches, ctc_cuda.bwd_launches)
+    for bad in (tb * 0, tb + T, tb[:-1], tb.float()):
+        try:
+            ctc_cuda.ctc_nll_cuda(lp, labels, lengths, V, logit_lengths=bad)
+        except ValueError:
+            continue
+        raise AssertionError(f"logit_lengths {bad.dtype} {tuple(bad.shape)} "
+                             "did not raise")
+    if (ctc_cuda.launches, ctc_cuda.bwd_launches) != counts:
+        raise AssertionError("a refused CTC call launched a kernel")
+    log("[kernels] ctc logit_lengths of 0, beyond T, the wrong shape or a "
+        "float type raise ValueError before any launch")
+    for key, value in check_ctc_lengths_chunks(torch, dev).items():
+        out[key] = max(out[key], value)
+    return out
+
+
 # The channel-major convs of one UNet eval forward at full width, D=8:
 # (block, Cin, Cout, H, W), in the order the forward runs them.
 def conv_shapes():
@@ -842,21 +1157,32 @@ def check_build() -> dict:
         f"UTMALDG, {ops['HMMA']} HMMA; ptxas per block width N: "
         + ", ".join(f"N={p['block_n']} {p['registers']} registers, "
                     f"{p['spill_bytes']} bytes spilled" for p in ptxas))
+    # the CTC kernels are templates on per-row steps: the record is the
+    # instantiation the main path launches (lengths null), and the other's
+    # registers and spills go beside it
     small = {}
-    for source, names in (("ctc", ("ctc_alpha_kernel",
-                                   "ctc_beta_grad_kernel")),
-                          ("gather", ("gather_fwd_kernel",
-                                      "gather_bwd_kernel"))):
-        for name in names:
-            k = [k for k in reports[source] if name in k["name"]]
+    for source, name, main, other in (
+            ("ctc", "ctc_alpha_kernel", "ILb0EE", "ILb1EE"),
+            ("ctc", "ctc_beta_grad_kernel", "ILb0EE", "ILb1EE"),
+            ("gather", "gather_fwd_kernel", "", None),
+            ("gather", "gather_bwd_kernel", "", None)):
+        found = {}
+        for tag in (main,) if other is None else (main, other):
+            k = [k for k in reports[source] if name + tag in k["name"]]
             if len(k) != 1:
                 raise AssertionError(f"ptxas on {source}.cu reported "
-                                     f"{len(k)} entries for {name}")
-            small[name] = {key: k[0][key] for key in
-                           ("registers", "smem_bytes", "spill_bytes")}
-            log(f"[build] {source}.cu {name}: {k[0]['registers']} "
+                                     f"{len(k)} entries for {name}{tag}")
+            found[tag] = k[0]
+            what = " with per-row steps" if tag == other else ""
+            log(f"[build] {source}.cu {name}{what}: {k[0]['registers']} "
                 f"registers, {k[0]['smem_bytes']} bytes of static shared "
                 f"memory, {k[0]['spill_bytes']} bytes spilled")
+        small[name] = {key: found[main][key] for key in
+                       ("registers", "smem_bytes", "spill_bytes")}
+        if other is not None:
+            small[name].update(
+                row_steps_registers=found[other]["registers"],
+                row_steps_spill_bytes=found[other]["spill_bytes"])
     return dict(conv=dict(sass=ops, ptxas=ptxas), **small)
 
 
@@ -2395,6 +2721,170 @@ def _random_search_params(n: int, space) -> list:
     return out
 
 
+@contextlib.contextmanager
+def _environ(**env):
+    """`os.environ` with `env` set, as it was again afterwards."""
+    old = {k: os.environ.get(k) for k in env}
+    os.environ.update(env)
+    try:
+        yield
+    finally:
+        for k, v in old.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+def run_quality_area(torch, dev, card, work, crnn_ckpt):
+    """`tools/quality_run_area.main` on the card at a tiny world
+    (QUALITY_AREA_ENV) from the pipeline phase's warmup checkpoint: one
+    pretraining and one area epoch of 2 steps at the script's budget and
+    batch, validation, then `EvalPrep` with the originals. Launches: per
+    step 3 CTC forwards with alpha and 3 backwards, 1 forward for the
+    validation batch, nothing else (the evaluation's OCR reads the crops on
+    the host). Checks the summary's keys, its ledger and its ranges. Returns
+    the launch counts and the summary."""
+    from qea_ocr_tpu_torch.tools import quality_run_area
+
+    out = os.path.join(work, "quality_area")
+    env = dict(QUALITY_AREA_ENV, QUALITY_OUT=out, CRNN_CKPT=crnn_ckpt)
+    _reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with _environ(**env):
+        summary = quality_run_area.main(["--device", "cuda"])
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    steps = int(env["TRAIN_SIZE"]) // 64
+    counts = _expect("quality_run_area.main", dict(
+        ctc_fwd=3 * steps + 1, ctc_bwd=3 * steps), tag="quality_area")
+    # rangeCER at 0.75: ceil(64 x 0.25) = 16 crops a step, queried clean
+    # and jittered; validation reads every crop
+    train_calls = steps * 2 * 16
+    with open(os.path.join(out, "summary.json")) as f:
+        if json.load(f) != summary:
+            raise AssertionError("summary.json is not main's summary")
+    want_keys = {"cleaned_acc", "cleaned_cer", "best_train_val_acc",
+                 "budget", "total_seconds", "original_acc", "original_cer",
+                 "best_epoch", "train_bb_calls", "total_bb_calls", "device"}
+    if set(summary) != want_keys or summary["device"] != "cuda:0" \
+            or summary["train_bb_calls"] != train_calls \
+            or summary["total_bb_calls"] != train_calls + int(
+                env["VAL_SIZE"]) or summary["budget"] != 0.25 \
+            or not all(0.0 <= summary[k] <= 1.0 + 1e-6 for k in (
+                "cleaned_acc", "cleaned_cer", "original_acc",
+                "original_cer")):
+        raise AssertionError(f"area quality summary {summary}")
+    log(f"[quality_area] quality_run_area.main on {env['TRAIN_SIZE']} + "
+        f"{env['VAL_SIZE']} crops, {env['AREA_EPOCHS']} area epoch after "
+        f"{env['PREP_PRETRAIN']} pretraining epoch, {env['EVAL_SIZE']} "
+        f"evaluation crops: {json.dumps(summary)}; {seconds:.2f} s ({card})")
+    return counts, dict(seconds=seconds, summary=summary)
+
+
+# A `python` for the launcher phase: it runs `python -m <module> ...` as
+# Python would, and writes the kernels' launch counts at exit.
+_COUNTING_PYTHON = """
+import atexit, json, runpy, sys
+sys.path.insert(0, {root!r})
+from qea_ocr_tpu_torch.ops.cuda import conv_cmajor_cuda, ctc_cuda, gather_cuda
+
+def dump():
+    with open({out!r}, "w") as f:
+        json.dump({{"gather_fwd": gather_cuda.launches,
+                   "gather_bwd": gather_cuda.bwd_launches,
+                   "ctc_fwd": ctc_cuda.launches,
+                   "ctc_bwd": ctc_cuda.bwd_launches,
+                   "conv": conv_cmajor_cuda.launches}}, f)
+atexit.register(dump)
+assert sys.argv[1] == "-m", sys.argv
+sys.argv = sys.argv[2:]
+runpy.run_module(sys.argv[0], run_name="__main__", alter_sys=True)
+"""
+
+
+def run_launcher(torch, dev, card, work, crnn_ckpt):
+    """`launch/run_area_training.sh` as a user runs it, with OCR=Fake, its
+    fixed flags (budget 0.93, rangeCER, window 3, batch 64) and, through
+    its "$@", one epoch on the synthetic world (LAUNCHER_TRAIN +
+    LAUNCHER_VAL crops) from the pipeline phase's warmup checkpoint. Its
+    fixed `--cers_ocr_path` is written first by `tools/cer_seed` (area
+    mode, the trainer's world). The `python` it finds first on PATH runs
+    the module as Python would and writes the kernels' launch counts at
+    exit: 3 CTC forwards and 3 backwards a step, 1 forward for validation,
+    nothing else. Returns the counts and the readings."""
+    from qea_ocr_tpu_torch.tools import cer_seed
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    base = os.path.join(work, "launcher")
+    data, exp, bin_dir = (os.path.join(base, d) for d in ("data", "exp",
+                                                          "bin"))
+    for d in (data, bin_dir):
+        os.makedirs(d)
+    cers = os.path.join(data, "all_cers_textarea.json")
+    cer_seed.main(["--mode", "area", "--dataset", "synthetic", "--ocr",
+                   "Fake", "--synthetic_size", str(LAUNCHER_TRAIN),
+                   "--seed", "42", "--out", cers, "--device", "cuda"])
+    with open(cers) as f:
+        if len(json.load(f)) != LAUNCHER_TRAIN:
+            raise AssertionError("the CER seed does not cover the world")
+    counts_path = os.path.join(base, "counts.json")
+    child = os.path.join(base, "counting_python.py")
+    with open(child, "w") as f:
+        f.write(_COUNTING_PYTHON.format(root=root, out=counts_path))
+    shim = os.path.join(bin_dir, "python")
+    with open(shim, "w") as f:
+        f.write(f'#!/bin/sh\nexec "{sys.executable}" "{child}" "$@"\n')
+    os.chmod(shim, 0o755)
+    env = dict(os.environ, DATA=data, EXP=exp, OCR="Fake", DEVICE="cuda",
+               PATH=f"{bin_dir}:{os.environ['PATH']}")
+    env.pop("NPROC", None)
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        ["bash", os.path.join(root, "qea_ocr_tpu_torch", "launch",
+                              "run_area_training.sh"),
+         "--dataset", "synthetic", "--synthetic_train_size",
+         str(LAUNCHER_TRAIN), "--synthetic_val_size", str(LAUNCHER_VAL),
+         "--epoch", "1", "--crnn_model", crnn_ckpt],
+        cwd=base, env=env, capture_output=True, text=True, timeout=600)
+    seconds = time.perf_counter() - t0
+    if proc.returncode != 0:
+        raise AssertionError(f"run_area_training.sh exited "
+                             f"{proc.returncode}:\n{proc.stdout[-4000:]}\n"
+                             f"{proc.stderr[-4000:]}")
+    with open(counts_path) as f:
+        counts = json.load(f)
+    steps = LAUNCHER_TRAIN // 64
+    want = {k: 0 for k in counts}
+    want.update(ctc_fwd=3 * steps + 1, ctc_bwd=3 * steps)
+    log(f"[launcher] kernel launches in run_area_training.sh: "
+        f"{json.dumps(counts)}")
+    if counts != want:
+        raise AssertionError(f"launches of the launcher {counts}, expected "
+                             f"{want}")
+    with open(os.path.join(exp, "metrics.jsonl")) as f:
+        (rec,) = [json.loads(line) for line in f]
+    # rangeCER at 0.93: ceil(64 x 0.07) = 5 crops a step, clean and jittered
+    train_calls = steps * 2 * 5
+    if rec["Total Black-Box Calls"] != train_calls or not all(
+            np.isfinite(rec[k]) for k in ("train_loss", "val_loss",
+                                          "CRNN_loss")):
+        raise AssertionError(f"the launcher's epoch: {rec}")
+    with open(os.path.join(exp, "params.txt")) as f:
+        params = f.read()
+    for flag in ("minibatch_subset_prop=0.93", "window_size=3",
+                 f"cers_ocr_path='{cers}'", "device='cuda'"):
+        if flag not in params:
+            raise AssertionError(f"{flag} not in the launcher's run: "
+                                 f"{params}")
+    log(f"[launcher] run_area_training.sh, one epoch on {LAUNCHER_TRAIN} + "
+        f"{LAUNCHER_VAL} crops: {seconds:.2f} s in a new process, ledger "
+        f"{rec['Total Black-Box Calls']}, train_loss "
+        f"{rec['train_loss']:.4f} ({card})")
+    return counts, dict(seconds=seconds, record=rec)
+
+
 def run_tooling(torch, dev, card, work, single):
     """Pruning and sweeps at full width on the card, on the trainer phase's
     world: the CER seed, both pruning methods, the CER analysis, one pruned
@@ -2666,6 +3156,7 @@ def main() -> None:
         f"the device (median, {card})")
     gather_fwd, gather_bwd = check_gather(torch, dev, card)
     ctc_fwd, ctc_bwd = check_ctc(torch, dev, card)
+    ctc_lengths = check_ctc_lengths(torch, dev, card)
     for record, kernel in ((gather_fwd, "gather_fwd_kernel"),
                            (gather_bwd, "gather_bwd_kernel"),
                            (ctc_fwd, "ctc_alpha_kernel"),
@@ -2691,12 +3182,23 @@ def main() -> None:
         export, export_launches = run_export(torch, dev, card, work,
                                              prep_ckpt)
         tooling_counts, tooling = run_tooling(torch, dev, card, work, single)
-    # the warmup's batch and the area's two shapes are more shapes the CTC
-    # kernels were held at
+        quality_area_counts, quality_area = run_quality_area(
+            torch, dev, card, work, crnn_ckpt)
+        launcher_counts, launcher = run_launcher(torch, dev, card, work,
+                                                 crnn_ckpt)
+    # the warmup's batch, the area's two shapes and the ragged logit
+    # lengths are more shapes the CTC kernels were held at
     for errs in (pipeline["warmup_ctc"], *area_ctc.values(),
-                 tooling["ctc"]):
+                 tooling["ctc"], ctc_lengths):
         ctc_fwd["max_abs_err"] = max(ctc_fwd["max_abs_err"], errs["nll_abs"])
         ctc_bwd["max_abs_err"] = max(ctc_bwd["max_abs_err"], errs["grad_abs"])
+    for record, key in ((ctc_fwd, "fwd"), (ctc_bwd, "bwd")):
+        record["lengths_truncated_max_diff"] = \
+            ctc_lengths["truncated_max_diff"]
+        for B in (D * S, 1536):
+            record[f"lengths_ms_b{B}"] = {
+                case: ctc_lengths[f"ms_b{B}"][f"{key}_{case}"]
+                for case in ("null", "all_t", "ragged")}
 
     csrc = "qea_ocr_tpu_torch/csrc/"
     pallas = "qea_ocr_tpu/ops/pallas/"
@@ -2715,6 +3217,8 @@ def main() -> None:
          "launches_area": area_counts[key],
          "launches_parallel": parallel_counts[key],
          "launches_tooling": tooling_counts[key],
+         "launches_quality_area": quality_area_counts[key],
+         "launches_launcher": launcher_counts[key],
          **({"launches_export": export_launches} if key == "conv" else {}),
          **record}
         for key, name, source, replaces, record in (
@@ -2737,6 +3241,8 @@ def main() -> None:
     log(f"[export] readings: {json.dumps(export)}")
     log(f"[parallel] readings: {json.dumps(parallel)}")
     log(f"[tooling] readings: {json.dumps(tooling)}")
+    log(f"[quality_area] readings: {json.dumps(quality_area)}")
+    log(f"[launcher] readings: {json.dumps(launcher)}")
     log(f"[smoke] wall time {time.perf_counter() - t_start:.1f} s from the "
         f"device check (the build included; {card})")
     print(json.dumps({"kernels": kernels}))

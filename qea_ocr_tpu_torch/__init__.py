@@ -7,9 +7,12 @@ mapping). It imports neither `jax` nor anything of `qea_ocr_tpu`.
 
 It does all that the JAX package does: serving (`serve.cleaner`,
 `cli.clean_docs`), the patch trainer (`train.patch_trainer`,
-`cli.patch_cli`), the CRNN warmup, both evaluators, the CER seed and the
-quality run, the area (word-crop) trainer (`train.area_trainer`,
-`cli.area_cli`), the `torch.export` artifact of a trained UNet
+`cli.patch_cli`), the CRNN warmup, both evaluators, the CER seed, the
+quality runs of both trainers (`tools.quality_run`,
+`tools.quality_run_area`), the area (word-crop) trainer
+(`train.area_trainer`, `cli.area_cli`), the CTC loss with per-row valid
+steps (`ops.ctc`, `logit_lengths`), GPU launchers (`launch/*.sh`) and
+console scripts (`qea-torch-*`), the `torch.export` artifact of a trained UNet
 (`tools.export_model`), the import of the reference's own checkpoints
 (`tools.import_torch`), data and tensor parallelism over
 `torch.distributed`, one process a GPU (`parallel`), dataset pruning

@@ -30,6 +30,26 @@
 // emission of -1e30 instead of being read out of bounds, and a length
 // outside [0, L] scores 1e5 with gradient 0.
 //
+// Per-row valid steps (the JAX package's `logit_lengths`, which it takes on
+// its optax path only): with a non-null `logit_lengths`, row b uses its
+// first T_b = logit_lengths[b] steps, T_b in [1, T], and nothing after:
+//   * NLL = -LSE(alpha[T_b-1, elen-1], alpha[T_b-1, elen-2]), and a row no
+//     alignment fits in T_b steps is clamped to exactly 1e5, as above;
+//   * beta starts at step T_b-1, and the gradient is exactly 0 at every
+//     t >= T_b (and on a clamped row);
+//   * the forward's alpha rows t >= T_b are left unwritten; the backward
+//     never reads them.
+// Row b is the same, bit for bit, as the same kernel on that row cut to its
+// first T_b steps. A block is one row, so T_b is the same for all of its
+// threads and the barrier a step stays uniform. The band and the shared
+// memory stay sized by the tensor's T: a superset of every row's. Each
+// kernel is a template on kRowSteps, and a null `logit_lengths` launches
+// the instantiation without it, which is every row at T: the code of the
+// kernels before per-row steps, which a runtime T_b = T made about 4%
+// slower in the backward on the card (PERF.md). The wrapper refuses a T_b
+// outside [1, T]; the kernels score such a row 1e5 with gradient 0 rather
+// than read outside the row.
+//
 // Bound: the T-step serial dependency, not bytes or FLOPs. Each step is one
 // log-sum-exp per extended position (3 expf + 1 logf) and one scattered
 // 4-byte emission load. At T=31, S=201 and B=128 the forward reads about
@@ -176,11 +196,15 @@ __device__ __forceinline__ void copy_async_wait_group() {
 // s < n = blockDim.x; see the header. Shared memory, in 4-byte words: alpha
 // (2, n), double-buffered, then the emission ring: one buffer of `chunk`
 // steps (chunk = T) or two (chunk < T), each the blank's emissions (chunk)
-// and the other positions' (chunk, n).
+// and the other positions' (chunk, n). kRowSteps: read each row's steps
+// from `logit_lengths`; else every row runs T.
+template <bool kRowSteps>
 __global__ void __launch_bounds__(1024)
 ctc_alpha_kernel(const float* __restrict__ log_probs,
                  const int* __restrict__ labels,
-                 const int* __restrict__ lengths, float* __restrict__ nll,
+                 const int* __restrict__ lengths,
+                 const int* __restrict__ logit_lengths,
+                 float* __restrict__ nll,
                  float* __restrict__ alpha_out, int T, int B, int V, int L,
                  int chunk, int pad_id, int blank) {
   extern __shared__ float smem[];
@@ -190,7 +214,12 @@ ctc_alpha_kernel(const float* __restrict__ log_probs,
   const int S = 2 * L + 1;
   const bool active = s < S;
   const size_t t_stride = (size_t)B * V;
+  // the ring's layout follows the tensor's T; the loops this row's steps
   const int n_chunks = (T + chunk - 1) / chunk;
+  int Tb = kRowSteps ? logit_lengths[b] : T;
+  const bool tb_ok = !kRowSteps || (Tb >= 1 && Tb <= T);
+  Tb = tb_ok ? Tb : 1;
+  const int row_chunks = (Tb + chunk - 1) / chunk;
   float* cur = smem;
   float* nxt = smem + n;
   float* blank_ring = smem + 2 * n;
@@ -204,7 +233,7 @@ ctc_alpha_kernel(const float* __restrict__ log_probs,
   const float* blank_src = log_probs + (size_t)b * V + blank;
   auto issue_blank = [&](int k) {
     const int t = k * chunk + s;
-    if (blank_ok && s < chunk && t < T)
+    if (blank_ok && s < chunk && t < Tb)
       copy_async(blank_ring + (k & 1) * chunk + s, blank_src + t * t_stride);
   };
   issue_blank(0);
@@ -231,7 +260,7 @@ ctc_alpha_kernel(const float* __restrict__ log_probs,
   auto issue_own = [&](int k) {
     if (own) {
       float* dst = ring + (k & 1) * chunk * n + s;
-      const int t1 = min(T, (k + 1) * chunk);
+      const int t1 = min(Tb, (k + 1) * chunk);
       for (int t = k * chunk; t < t1; ++t, dst += n) {
         if (z_ok) copy_async(dst, e_src + t * t_stride);
         else *dst = kNeg;
@@ -240,7 +269,7 @@ ctc_alpha_kernel(const float* __restrict__ log_probs,
     copy_async_commit();
   };
   issue_own(0);
-  if (n_chunks > 1) {
+  if (row_chunks > 1) {
     issue_blank(1);
     issue_own(1);
   }
@@ -248,15 +277,15 @@ ctc_alpha_kernel(const float* __restrict__ log_probs,
   // alpha_out is (B, T, n); null when no gradient is wanted
   float* a_out = alpha_out ? alpha_out + (size_t)b * T * n + s : nullptr;
   float mine = kNeg;  // this position's alpha at the last step
-  for (int k = 0; k < n_chunks; ++k) {
-    if (k + 1 < n_chunks) copy_async_wait_group<1>();
+  for (int k = 0; k < row_chunks; ++k) {
+    if (k + 1 < row_chunks) copy_async_wait_group<1>();
     else copy_async_wait_group<0>();
     __syncthreads();  // the blank's copies of chunk k, for every thread
     const int e_stride = own ? n : 1;
     const float* e = own ? ring + (k & 1) * chunk * n + s
                          : blank_ring + (k & 1) * chunk;
     int t = k * chunk;
-    const int t1 = min(T, t + chunk);
+    const int t1 = min(Tb, t + chunk);
     if (t == 0) {
       mine = active && s < 2 ? e[0] : kNeg;
       cur[s] = mine;
@@ -279,15 +308,16 @@ ctc_alpha_kernel(const float* __restrict__ log_probs,
       nxt = tmp;
     }
     // every thread is past its last read of buffer k % 2
-    if (k + 2 < n_chunks) {
+    if (k + 2 < row_chunks) {
       issue_blank(k + 2);
       issue_own(k + 2);
     }
   }
 
+  // cur is alpha at step Tb-1
   if (s == 0) {
     float out = kClamp;
-    if (len >= 0 && len <= L) {
+    if (tb_ok && len >= 0 && len <= L) {
       const int elen = 2 * len + 1;
       // elen > n: len > T, so both positions are out of reach and the row
       // is clamped, as over the full S
@@ -308,11 +338,13 @@ ctc_alpha_kernel(const float* __restrict__ log_probs,
 // s < n = blockDim.x; see the header.
 // Shared memory, in 4-byte words: c = beta + E (2, n), E and the terms
 // (T, n) each, the row's gradient (T, V), the blank's totals (T) and the
-// label's symbols z[2k+1] (n / 2).
+// label's symbols z[2k+1] (n / 2). kRowSteps as in the forward.
+template <bool kRowSteps>
 __global__ void __launch_bounds__(1024)
 ctc_beta_grad_kernel(const float* __restrict__ log_probs,
                      const int* __restrict__ labels,
                      const int* __restrict__ lengths,
+                     const int* __restrict__ logit_lengths,
                      const float* __restrict__ alpha,
                      const float* __restrict__ nll,
                      const float* __restrict__ grad_out,
@@ -330,7 +362,9 @@ ctc_beta_grad_kernel(const float* __restrict__ log_probs,
   // every s >= elen, and those positions contribute exactly 0.
   const float row_nll = nll[b];
   const int len = lengths[b];
-  if (!(row_nll < kClamp) || len < 0 || 2 * len + 1 > n) {
+  const int Tb = kRowSteps ? logit_lengths[b] : T;  // this row's steps
+  if (!(row_nll < kClamp) || len < 0 || 2 * len + 1 > n ||
+      (kRowSteps && (Tb < 1 || Tb > T))) {
     for (int i = s; i < T * V; i += n) {
       const int t = i / V;
       out[t * t_stride + (i - t * V)] = 0.0f;
@@ -368,7 +402,7 @@ ctc_beta_grad_kernel(const float* __restrict__ log_probs,
     float* e_dst = emit + s;
     float* a_dst = term + s;
 #pragma unroll 8
-    for (int t = 0; t < T; ++t) {
+    for (int t = 0; t < Tb; ++t) {
       if (z_ok) copy_async(e_dst, e_src);
       else *e_dst = kNeg;
       copy_async(a_dst, a_src);
@@ -388,10 +422,11 @@ ctc_beta_grad_kernel(const float* __restrict__ log_probs,
   for (int i = 0; i < (s >> 1) && first; ++i) first = zk[i] != z;
   copy_async_wait();
 
+  // the steps t >= Tb keep the gradient's zeros
   float beta = s == elen - 1 || s == elen - 2 ? 0.0f : kNeg;
-  for (int t = T - 1; t >= 0; --t) {
+  for (int t = Tb - 1; t >= 0; --t) {
     if (active) {
-      if (t < T - 1) {
+      if (t < Tb - 1) {
         const float* c_nxt = cbuf + ((t + 1) & 1) * n;
         const float c1 = s + 1 < elen ? c_nxt[s + 1] : kNeg;
         const float c2 = skip_dep && s + 2 < elen ? c_nxt[s + 2] : kNeg;
@@ -403,10 +438,10 @@ ctc_beta_grad_kernel(const float* __restrict__ log_probs,
     __syncthreads();
   }
 
-  // the terms, all T independent
+  // the terms, all Tb independent
   if (active) {
 #pragma unroll 8
-    for (int t = 0; t < T; ++t)
+    for (int t = 0; t < Tb; ++t)
       term[t * n + s] = -expf(term[t * n + s] - logz) * g;
   }
   __syncthreads();
@@ -416,17 +451,19 @@ ctc_beta_grad_kernel(const float* __restrict__ log_probs,
   // label order, into its slot: one writer a slot, no atomics
   for (int t = s; t < T; t += n) {
     float sum = 0.0f;
+    if (t < Tb) {
 #pragma unroll 8
-    for (int e = 0; e < elen; e += 2) sum += term[t * n + e];
+      for (int e = 0; e < elen; e += 2) sum += term[t * n + e];
+    }
     blank_total[t] = sum;
   }
   if (first) {
 #pragma unroll 8
-    for (int t = 0; t < T; ++t) grad[t * V + z] = term[t * n + s];
+    for (int t = 0; t < Tb; ++t) grad[t * V + z] = term[t * n + s];
     for (int i = (s >> 1) + 1; i < len; ++i) {
       if (zk[i] != z) continue;
 #pragma unroll 8
-      for (int t = 0; t < T; ++t) grad[t * V + z] += term[t * n + 2 * i + 1];
+      for (int t = 0; t < Tb; ++t) grad[t * V + z] += term[t * n + 2 * i + 1];
     }
   }
   __syncthreads();
@@ -459,11 +496,13 @@ static int band_threads(int T, int L) {
 }
 
 // alpha_out: (B, T, band_threads(T, L)) float32 for a later
-// qea_ctc_beta_bwd, or null.
+// qea_ctc_beta_bwd, or null. logit_lengths: (B,) steps of each row, in
+// [1, T], or null for all T.
 extern "C" int qea_ctc_alpha_fwd(const float* log_probs, const int* labels,
-                                 const int* lengths, float* nll,
-                                 float* alpha_out, int T, int B, int V, int L,
-                                 int pad_id, int blank, cudaStream_t stream) {
+                                 const int* lengths, const int* logit_lengths,
+                                 float* nll, float* alpha_out, int T, int B,
+                                 int V, int L, int pad_id, int blank,
+                                 cudaStream_t stream) {
   const int threads = band_threads(T, L);
   // the emission ring: chunks of at most kFwdChunk steps, two buffers of
   // them beside alpha's two rows within kFwdSmem, or one buffer of all T
@@ -473,16 +512,24 @@ extern "C" int qea_ctc_alpha_fwd(const float* log_probs, const int* labels,
   if (T <= chunk) chunk = T;
   const size_t smem =
       4 * ((size_t)2 * threads + (size_t)buffers * chunk * (threads + 1));
-  ctc_alpha_kernel<<<B, threads, smem, stream>>>(log_probs, labels, lengths,
-                                                 nll, alpha_out, T, B, V, L,
-                                                 chunk, pad_id, blank);
+  if (logit_lengths) {
+    ctc_alpha_kernel<true><<<B, threads, smem, stream>>>(
+        log_probs, labels, lengths, logit_lengths, nll, alpha_out, T, B, V,
+        L, chunk, pad_id, blank);
+  } else {
+    ctc_alpha_kernel<false><<<B, threads, smem, stream>>>(
+        log_probs, labels, lengths, nullptr, nll, alpha_out, T, B, V, L,
+        chunk, pad_id, blank);
+  }
   return (int)cudaGetLastError();
 }
 
 // grad_lp (T, B, V) = d sum_b(grad_out[b] * nll[b]) / d log_probs, from the
-// alpha and the (clamped) nll that qea_ctc_alpha_fwd wrote for these inputs.
+// alpha and the (clamped) nll that qea_ctc_alpha_fwd wrote for these inputs
+// (the same logit_lengths, or null).
 extern "C" int qea_ctc_beta_bwd(const float* log_probs, const int* labels,
-                                const int* lengths, const float* alpha,
+                                const int* lengths, const int* logit_lengths,
+                                const float* alpha,
                                 const float* nll, const float* grad_out,
                                 float* grad_lp, int T, int B, int V, int L,
                                 int pad_id, int blank, cudaStream_t stream) {
@@ -492,15 +539,16 @@ extern "C" int qea_ctc_beta_bwd(const float* log_probs, const int* labels,
   const long long smem =
       4 * (2LL * threads * (T + 1) + (long long)T * V + T + threads / 2);
   if (smem > kMaxSmem) return (int)cudaErrorInvalidValue;
+  auto kernel = logit_lengths ? ctc_beta_grad_kernel<true>
+                              : ctc_beta_grad_kernel<false>;
   if (smem > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
-        ctc_beta_grad_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)smem);
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return (int)err;
   }
-  ctc_beta_grad_kernel<<<B, threads, (size_t)smem, stream>>>(
-      log_probs, labels, lengths, alpha, nll, grad_out, grad_lp, T, B, V, L,
-      pad_id, blank);
+  kernel<<<B, threads, (size_t)smem, stream>>>(
+      log_probs, labels, lengths, logit_lengths, alpha, nll, grad_out,
+      grad_lp, T, B, V, L, pad_id, blank);
   return (int)cudaGetLastError();
 }
 

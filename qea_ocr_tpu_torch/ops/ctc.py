@@ -8,6 +8,12 @@ on CUDA tensors it is the hand-written alpha and beta recursion kernels of
 `csrc/ctc.cu`, on CPU tensors their plain PyTorch versions. A row that no
 alignment fits scores exactly 1e5 and has gradient exactly 0. Gradients
 flow to the scores only.
+
+`logit_lengths` (B,) gives each row's valid steps, as in JAX: row b uses
+its first `logit_lengths[b]` steps, in [1, T] (anything else raises
+`ValueError`), and its gradient is exactly 0 after them. The JAX package
+takes optax's path for it, which scores a row no alignment fits near 1e5
+instead of exactly 1e5; the port keeps its kernels' semantics.
 """
 
 from __future__ import annotations
@@ -24,25 +30,24 @@ def ctc_loss_samplewise(scores: torch.Tensor, labels: torch.Tensor,
                         logit_lengths: torch.Tensor | None = None
                         ) -> torch.Tensor:
     """Per-sample CTC NLL, (B,) float32 (not length-normalised)."""
-    if logit_lengths is not None:
-        raise NotImplementedError(
-            "logit_lengths is not supported: every row uses all T steps "
-            "(no caller of the JAX package passes it either)")
     return ctc_cuda.ctc_nll(scores.float().contiguous(),
                             labels.int().contiguous(),
-                            label_lengths.int().contiguous(), pad_id, blank_id)
+                            label_lengths.int().contiguous(), pad_id, blank_id,
+                            logit_lengths)
 
 
 def ctc_loss_mean(scores: torch.Tensor, labels: torch.Tensor,
                   label_lengths: torch.Tensor, *, pad_id: int,
                   blank_id: int = 0,
+                  logit_lengths: torch.Tensor | None = None,
                   sample_mask: torch.Tensor | None = None) -> torch.Tensor:
     """torch `CTCLoss(reduction='mean')` normalisation: the mean over the
     batch of `nll_b / max(1, len_b)`, restricted to `sample_mask` if given.
     Inside `multihost.data_group` the count is the global batch's, so the
     result is this rank's share of the global mean."""
     per_seq = ctc_loss_samplewise(scores, labels, label_lengths,
-                                  pad_id=pad_id, blank_id=blank_id)
+                                  pad_id=pad_id, blank_id=blank_id,
+                                  logit_lengths=logit_lengths)
     normed = per_seq / label_lengths.float().clamp(min=1.0)
     if sample_mask is None:
         return global_mean(normed)

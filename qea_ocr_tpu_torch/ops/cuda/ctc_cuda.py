@@ -11,6 +11,12 @@ would turn the -1e30 surrogate of -inf into NaN on a row no alignment fits);
 such a row, like a length outside [0, L], has gradient exactly 0. A CPU
 tensor takes the plain versions; a CUDA tensor launches the kernels or
 raises.
+
+Every function here also takes `logit_lengths`, (B,) integer valid steps a
+row in [1, T] (the JAX package's argument of the same name): row b then
+uses its first `logit_lengths[b]` steps only, a row no alignment fits in
+them scores exactly 1e5, and the gradient is exactly 0 at every later
+step. `None` is every row at T, the path the trainers take.
 """
 
 from __future__ import annotations
@@ -80,13 +86,41 @@ def _extend(log_probs: torch.Tensor, labels: torch.Tensor, pad_id: int,
     return z, skip, col, emit
 
 
-def _alpha_plain(log_probs, labels, lengths, pad_id, blank_id):
+def check_logit_lengths(log_probs: torch.Tensor,
+                        logit_lengths: torch.Tensor) -> torch.Tensor:
+    """Raise `ValueError` unless `logit_lengths` is a (B,) integer tensor on
+    the log-probs' device with every value in [1, T]; -> it as contiguous
+    int32. Reads the values back to the host (one synchronisation)."""
+    T, B = log_probs.shape[:2]
+    if logit_lengths.dtype.is_floating_point or logit_lengths.dtype in (
+            torch.bool, torch.complex64, torch.complex128):
+        raise ValueError(f"logit_lengths must be an integer tensor, got "
+                         f"{logit_lengths.dtype}")
+    if tuple(logit_lengths.shape) != (B,):
+        raise ValueError(f"logit_lengths must have shape ({B},), got "
+                         f"{tuple(logit_lengths.shape)}")
+    if logit_lengths.device != log_probs.device:
+        raise ValueError(f"logit_lengths on {logit_lengths.device}, the "
+                         f"log-probs on {log_probs.device}")
+    if B and not (int(logit_lengths.min()) >= 1
+                  and int(logit_lengths.max()) <= T):
+        raise ValueError(f"logit_lengths must lie in [1, T={T}], got "
+                         f"[{int(logit_lengths.min())}, "
+                         f"{int(logit_lengths.max())}]")
+    return logit_lengths.to(torch.int32).contiguous()
+
+
+def _alpha_plain(log_probs, labels, lengths, pad_id, blank_id,
+                 logit_lengths=None):
     """-> nll (B,), alpha (T, B, S) over every extended position: the CPU
-    layout, which only `ctc_grad_plain` takes."""
+    layout, which only `ctc_grad_plain` takes. With `logit_lengths` a row's
+    alpha stays at its step T_b-1 from there on (optax's carry under
+    padding), so the NLL is read at T_b-1."""
     T, B, V = log_probs.shape
     L = labels.shape[1]
     dev = log_probs.device
     _, skip, col, emit = _extend(log_probs, labels, pad_id, blank_id)
+    tb = None if logit_lengths is None else logit_lengths.long()[:, None]
 
     neg2 = torch.full((B, 2), NEG, device=dev)
     a = torch.where(col < 2, emit[0], torch.full_like(emit[0], NEG))
@@ -95,7 +129,8 @@ def _alpha_plain(log_probs, labels, lengths, pad_id, blank_id):
         a1 = torch.cat([neg2[:, :1], a[:, :-1]], dim=1)
         a2 = torch.where(skip, torch.cat([neg2, a[:, :-2]], dim=1),
                          torch.full_like(a, NEG))
-        a = _lse3(a, a1, a2) + emit[t]
+        step = _lse3(a, a1, a2) + emit[t]
+        a = step if tb is None else torch.where(t < tb, step, a)
         alphas.append(a)
 
     ln = lengths.long()
@@ -115,21 +150,36 @@ def _alpha_plain(log_probs, labels, lengths, pad_id, blank_id):
 
 
 def ctc_nll_plain(log_probs: torch.Tensor, labels: torch.Tensor,
-                  lengths: torch.Tensor, pad_id: int,
-                  blank_id: int = 0) -> torch.Tensor:
+                  lengths: torch.Tensor, pad_id: int, blank_id: int = 0,
+                  logit_lengths: torch.Tensor | None = None) -> torch.Tensor:
     """log_probs (T, B, V) float32, labels (B, L) int, lengths (B,) int
     -> (B,) float32 NLL. No gradient: `ctc_nll` carries it."""
+    if logit_lengths is not None:
+        logit_lengths = check_logit_lengths(log_probs, logit_lengths)
     with torch.no_grad():
-        return _alpha_plain(log_probs, labels, lengths, pad_id, blank_id)[0]
+        return _alpha_plain(log_probs, labels, lengths, pad_id, blank_id,
+                            logit_lengths)[0]
 
 
 def ctc_grad_plain(log_probs: torch.Tensor, labels: torch.Tensor,
                    lengths: torch.Tensor, alpha: torch.Tensor,
                    nll: torch.Tensor, grad_out: torch.Tensor, pad_id: int,
-                   blank_id: int = 0) -> torch.Tensor:
+                   blank_id: int = 0,
+                   logit_lengths: torch.Tensor | None = None) -> torch.Tensor:
     """Beta recursion: d sum_b(grad_out[b] * nll[b]) / d log_probs, (T, B, V),
-    from `_alpha_plain`'s alpha (T, B, S) and nll. Rows with nll == 1e5 get
-    exactly 0."""
+    from `_alpha_plain`'s alpha (T, B, S) and nll (the same
+    `logit_lengths`). Rows with nll == 1e5 get exactly 0; with
+    `logit_lengths` a row's beta starts at its own step T_b-1, and its steps
+    t >= T_b get exactly 0."""
+    if logit_lengths is not None:
+        logit_lengths = check_logit_lengths(log_probs, logit_lengths)
+    return _grad_plain(log_probs, labels, lengths, alpha, nll, grad_out,
+                       pad_id, blank_id, logit_lengths)
+
+
+def _grad_plain(log_probs, labels, lengths, alpha, nll, grad_out, pad_id,
+                blank_id, logit_lengths):
+    """`ctc_grad_plain` on `logit_lengths` already checked, or None."""
     T, B, V = log_probs.shape
     L = labels.shape[1]
     dev = log_probs.device
@@ -142,17 +192,24 @@ def ctc_grad_plain(log_probs: torch.Tensor, labels: torch.Tensor,
     logz = -nll[:, None]
     neg = torch.full((B, 2), NEG, device=dev)
 
-    b = torch.where((col == elen - 1) | (col == elen - 2), 0.0, NEG)
+    b_last = torch.where((col == elen - 1) | (col == elen - 2), 0.0, NEG)
+    tb = None if logit_lengths is None else logit_lengths.long()[:, None]
+    b = b_last
     grads = [None] * T
-    grads[T - 1] = -torch.exp(alpha[T - 1] + b - logz)
-    for t in range(T - 2, -1, -1):
-        c = b + emit[t + 1]
-        b1 = torch.cat([c[:, 1:], neg[:, :1]], dim=1)
-        b2 = torch.where(skip_dep, torch.cat([c[:, 2:], neg], dim=1),
-                         torch.full_like(c, NEG))
-        b = torch.where(col < elen, _lse3(c, b1, b2),
-                        torch.full_like(c, NEG))
-        grads[t] = -torch.exp(alpha[t] + b - logz)
+    for t in range(T - 1, -1, -1):
+        if t < T - 1:
+            c = b + emit[t + 1]
+            b1 = torch.cat([c[:, 1:], neg[:, :1]], dim=1)
+            b2 = torch.where(skip_dep, torch.cat([c[:, 2:], neg], dim=1),
+                             torch.full_like(c, NEG))
+            b = torch.where(col < elen, _lse3(c, b1, b2),
+                            torch.full_like(c, NEG))
+            if tb is not None:
+                # a row whose last step is t starts its beta here
+                b = torch.where(tb == t + 1, b_last, b)
+        g = -torch.exp(alpha[t] + b - logz)
+        # select, do not multiply: a step past T_b may hold inf
+        grads[t] = g if tb is None else torch.where(t < tb, g, 0.0)
     # select, do not multiply: a clamped row's exp may be inf
     d_emit = torch.where(live[None, :, None],
                          torch.stack(grads) * grad_out[None, :, None],
@@ -162,14 +219,19 @@ def ctc_grad_plain(log_probs: torch.Tensor, labels: torch.Tensor,
         2, z[None].expand(T, B, -1), d_emit)
 
 
+def _ptr(t: torch.Tensor | None):
+    """A tensor's device address for ctypes, or None (a null pointer)."""
+    return None if t is None else t.data_ptr()
+
+
 def _lib() -> ctypes.CDLL:
     lib = build.load("ctc")
     fn = lib.qea_ctc_alpha_fwd
     if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6 + [
+        fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6 + [
             ctypes.c_void_p]
         fn.restype = ctypes.c_int
-        lib.qea_ctc_beta_bwd.argtypes = [ctypes.c_void_p] * 7 + [
+        lib.qea_ctc_beta_bwd.argtypes = [ctypes.c_void_p] * 8 + [
             ctypes.c_int] * 6 + [ctypes.c_void_p]
         lib.qea_ctc_beta_bwd.restype = ctypes.c_int
         lib.qea_ctc_error_string.argtypes = [ctypes.c_int]
@@ -214,13 +276,25 @@ def _check(log_probs, labels, lengths, grad: bool = False) -> None:
 
 def ctc_nll_cuda(log_probs: torch.Tensor, labels: torch.Tensor,
                  lengths: torch.Tensor, pad_id: int, blank_id: int = 0, *,
-                 want_alpha: bool = False):
+                 want_alpha: bool = False,
+                 logit_lengths: torch.Tensor | None = None):
     """Launch the alpha kernel: log_probs (T, B, V) float32, labels (B, L)
     int32, lengths (B,) int32, all contiguous on one CUDA device. Returns
     nll (B,), or with `want_alpha` the pair (nll, alpha) that `ctc_grad_cuda`
     takes (and then within the backward's limits): alpha over the band only,
-    (B, T, band_threads(T, L)), -1e30 at positions s >= 2L+1. No gradient:
-    `ctc_nll` carries it."""
+    (B, T, band_threads(T, L)), -1e30 at positions s >= 2L+1, unwritten at
+    a row's steps t >= logit_lengths[b]. No gradient: `ctc_nll` carries
+    it."""
+    if logit_lengths is not None:
+        logit_lengths = check_logit_lengths(log_probs, logit_lengths)
+    return _nll_launch(log_probs, labels, lengths, pad_id, blank_id,
+                       want_alpha, logit_lengths)
+
+
+def _nll_launch(log_probs, labels, lengths, pad_id, blank_id, want_alpha,
+                logit_lengths):
+    """`ctc_nll_cuda` on `logit_lengths` already checked (int32), or None:
+    no read back to the host."""
     global launches
     _check(log_probs, labels, lengths, grad=want_alpha)
     T, B, V = log_probs.shape
@@ -235,7 +309,7 @@ def ctc_nll_cuda(log_probs: torch.Tensor, labels: torch.Tensor,
             stream = torch.cuda.current_stream().cuda_stream
             rc = lib.qea_ctc_alpha_fwd(
                 log_probs.data_ptr(), labels.data_ptr(), lengths.data_ptr(),
-                nll.data_ptr(), alpha.data_ptr() if want_alpha else None,
+                _ptr(logit_lengths), nll.data_ptr(), _ptr(alpha),
                 T, B, V, L, pad_id, blank_id, stream)
         if rc != 0:
             raise RuntimeError("CTC kernel launch failed: "
@@ -247,10 +321,21 @@ def ctc_nll_cuda(log_probs: torch.Tensor, labels: torch.Tensor,
 def ctc_grad_cuda(log_probs: torch.Tensor, labels: torch.Tensor,
                   lengths: torch.Tensor, alpha: torch.Tensor,
                   nll: torch.Tensor, grad_out: torch.Tensor, pad_id: int,
-                  blank_id: int = 0) -> torch.Tensor:
+                  blank_id: int = 0,
+                  logit_lengths: torch.Tensor | None = None) -> torch.Tensor:
     """Launch the beta/gradient kernel on `ctc_nll_cuda(...,
-    want_alpha=True)`'s outputs, alpha (B, T, band_threads(T, L)) and nll:
-    -> d log_probs (T, B, V) float32."""
+    want_alpha=True)`'s outputs, alpha (B, T, band_threads(T, L)) and nll,
+    made with the same `logit_lengths`: -> d log_probs (T, B, V) float32."""
+    if logit_lengths is not None:
+        logit_lengths = check_logit_lengths(log_probs, logit_lengths)
+    return _grad_launch(log_probs, labels, lengths, alpha, nll, grad_out,
+                        pad_id, blank_id, logit_lengths)
+
+
+def _grad_launch(log_probs, labels, lengths, alpha, nll, grad_out, pad_id,
+                 blank_id, logit_lengths):
+    """`ctc_grad_cuda` on `logit_lengths` already checked (int32), or None:
+    no read back to the host."""
     global bwd_launches
     _check(log_probs, labels, lengths, grad=True)
     T, B, V = log_probs.shape
@@ -271,7 +356,8 @@ def ctc_grad_cuda(log_probs: torch.Tensor, labels: torch.Tensor,
         stream = torch.cuda.current_stream().cuda_stream
         rc = lib.qea_ctc_beta_bwd(
             log_probs.data_ptr(), labels.data_ptr(), lengths.data_ptr(),
-            alpha.data_ptr(), nll.data_ptr(), grad_out.data_ptr(),
+            _ptr(logit_lengths), alpha.data_ptr(), nll.data_ptr(),
+            grad_out.data_ptr(),
             grad.data_ptr(), T, B, V, L, pad_id, blank_id, stream)
     if rc != 0:
         raise RuntimeError("CTC backward kernel launch failed: "
@@ -281,39 +367,51 @@ def ctc_grad_cuda(log_probs: torch.Tensor, labels: torch.Tensor,
 
 
 class _CtcNll(torch.autograd.Function):
-    """nll with the explicit beta-recursion gradient, on either device."""
+    """nll with the explicit beta-recursion gradient, on either device.
+    `logit_lengths` was checked by `ctc_nll`, or is None: neither pass
+    checks it again (no read back to the host)."""
 
     @staticmethod
-    def forward(ctx, log_probs, labels, lengths, pad_id, blank_id):
+    def forward(ctx, log_probs, labels, lengths, pad_id, blank_id,
+                logit_lengths):
         if log_probs.device.type == "cuda":
-            nll, alpha = ctc_nll_cuda(log_probs, labels, lengths, pad_id,
-                                      blank_id, want_alpha=True)
+            nll, alpha = _nll_launch(log_probs, labels, lengths, pad_id,
+                                     blank_id, True, logit_lengths)
         else:
             nll, alpha = _alpha_plain(log_probs, labels, lengths, pad_id,
-                                      blank_id)
-        ctx.save_for_backward(log_probs, labels, lengths, alpha, nll)
+                                      blank_id, logit_lengths)
+        ctx.save_for_backward(log_probs, labels, lengths, alpha, nll,
+                              logit_lengths)
         ctx.ids = (pad_id, blank_id)
         return nll
 
     @staticmethod
     def backward(ctx, grad_out):
-        log_probs, labels, lengths, alpha, nll = ctx.saved_tensors
-        grad_fn = ctc_grad_cuda if log_probs.device.type == "cuda" \
-            else ctc_grad_plain
+        log_probs, labels, lengths, alpha, nll, logit_lengths = \
+            ctx.saved_tensors
+        grad_fn = _grad_launch if log_probs.device.type == "cuda" \
+            else _grad_plain
         grad = grad_fn(log_probs, labels, lengths, alpha, nll,
-                       grad_out.float().contiguous(), *ctx.ids)
-        return grad, None, None, None, None
+                       grad_out.float().contiguous(), *ctx.ids,
+                       logit_lengths)
+        return grad, None, None, None, None, None
 
 
 def ctc_nll(log_probs: torch.Tensor, labels: torch.Tensor,
-            lengths: torch.Tensor, pad_id: int,
-            blank_id: int = 0) -> torch.Tensor:
-    """(T, B, V) log-probs, (B, L) labels, (B,) lengths -> (B,) NLL,
-    differentiable in the log-probs."""
+            lengths: torch.Tensor, pad_id: int, blank_id: int = 0,
+            logit_lengths: torch.Tensor | None = None) -> torch.Tensor:
+    """(T, B, V) log-probs, (B, L) labels, (B,) lengths, optional (B,)
+    valid steps -> (B,) NLL, differentiable in the log-probs."""
     if log_probs.device.type not in ("cpu", "cuda"):
         raise ValueError(f"no CTC loss for device {log_probs.device}")
+    if logit_lengths is not None:
+        logit_lengths = check_logit_lengths(log_probs, logit_lengths)
     if log_probs.requires_grad and torch.is_grad_enabled():
-        return _CtcNll.apply(log_probs, labels, lengths, pad_id, blank_id)
+        return _CtcNll.apply(log_probs, labels, lengths, pad_id, blank_id,
+                             logit_lengths)
     if log_probs.device.type == "cpu":
-        return ctc_nll_plain(log_probs, labels, lengths, pad_id, blank_id)
-    return ctc_nll_cuda(log_probs, labels, lengths, pad_id, blank_id)
+        with torch.no_grad():
+            return _alpha_plain(log_probs, labels, lengths, pad_id, blank_id,
+                                logit_lengths)[0]
+    return _nll_launch(log_probs, labels, lengths, pad_id, blank_id, False,
+                       logit_lengths)

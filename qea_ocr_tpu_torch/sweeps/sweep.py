@@ -109,7 +109,7 @@ def run_sweep(which: str, n_trials: int, storage: Optional[str],
     return dict(best_value=best_value, best_params=best_params)
 
 
-def main(argv=None):
+def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(description="Hyperparameter sweep")
     p.add_argument("--which", choices=["patch", "crnn"], default="patch")
     p.add_argument("--n_trials", type=int, default=1)
@@ -129,7 +129,11 @@ def main(argv=None):
                    help="JSON dict of extra trainer-config overrides merged "
                         "into every trial (e.g. shrink the synthetic world "
                         "for smoke sweeps / SLURM array probes)")
-    args = p.parse_args(argv)
+    return p
+
+
+def main(argv=None):
+    args = build_parser().parse_args(argv)
 
     if args.which == "patch":
         base = dict(epochs=args.epoch, ocr=args.ocr, dataset=args.dataset,

@@ -120,12 +120,147 @@ def test_ctc_loss_mean_matches(monkeypatch):
         np.testing.assert_allclose(got.item(), float(ref), rtol=RTOL)
 
 
-def test_ctc_rejects_logit_lengths():
-    lp = torch.zeros(4, 2, 5)
-    with pytest.raises(NotImplementedError):
-        tctc.ctc_loss_samplewise(lp, torch.zeros(2, 3, dtype=torch.int32),
-                                 torch.ones(2, dtype=torch.int32), pad_id=5,
-                                 logit_lengths=torch.full((2,), 4))
+def _needs(label):
+    """Steps a label needs: one a symbol, and a blank between repeats."""
+    return len(label) + sum(a == b for a, b in zip(label[:-1], label[1:]))
+
+
+def _ragged(seed, T=31, B=12, V=20, L=12):
+    """Log-probs, labels, lengths and per-row valid steps T_b drawn from a
+    numpy seed, with fixed rows: a zero-length label and a one-symbol label
+    at T_b = 1, rows at T_b = T, rows that fit T but not their T_b (10
+    symbols in 8 steps; three repeats, which need 5, in 4), repeats that
+    just fit, and a label longer than T. Returns them with the rows that no
+    alignment fits in T_b steps."""
+    rng = np.random.default_rng(seed)
+    lp = _log_probs(rng, T, B, V)
+    fixed = [([], 1), ([4], 1), (list(rng.integers(1, V, 10)), T),
+             (list(1 + np.arange(10) % (V - 1)), 8), ([3, 3, 3], 4),
+             ([3, 3, 3], 5), ([5, 5, 2, 2], T), (list(rng.integers(1, V, L)),
+                                                 T)]
+    rows = fixed + [(list(rng.integers(1, V, rng.integers(0, L + 1))),
+                     int(rng.integers(1, T + 1)))
+                    for _ in range(B - len(fixed))]
+    labels = np.full((B, L), V, np.int32)
+    lengths = np.array([len(r) for r, _ in rows], np.int32)
+    for i, (r, _) in enumerate(rows):
+        labels[i, :len(r)] = r
+    logit_lengths = np.array([tb for _, tb in rows], np.int32)
+    infeasible = np.array([_needs(r) > tb for r, tb in rows])
+    assert 0 < infeasible.sum() < B
+    return lp, labels, lengths, logit_lengths, infeasible
+
+
+def _jax_samplewise(lp, labels, lengths, logit_lengths, V):
+    return np.asarray(jctc.ctc_loss_samplewise(
+        jnp.asarray(lp), jnp.asarray(labels), jnp.asarray(lengths), pad_id=V,
+        logit_lengths=jnp.asarray(logit_lengths)))
+
+
+def _port_samplewise(lp, labels, lengths, logit_lengths, V):
+    return tctc.ctc_loss_samplewise(
+        torch.from_numpy(lp), torch.from_numpy(labels),
+        torch.from_numpy(lengths), pad_id=V,
+        logit_lengths=None if logit_lengths is None
+        else torch.from_numpy(logit_lengths)).numpy()
+
+
+@pytest.mark.parametrize("seed,T,V,L", [
+    (40, 31, 20, 12),     # the CRNN's T
+    (41, 31, 95, 30),     # the production vocabulary
+    (42, 9, 7, 10),       # a short sequence, labels longer than T
+])
+def test_ctc_logit_lengths_match_jax(seed, T, V, L):
+    """Rows an alignment fits in T_b steps agree with JAX's
+    `ctc_loss_samplewise(logit_lengths=...)` (its optax path) at RTOL; a row
+    that none fits is exactly 1e5 in the port and optax's surrogate, at or
+    above 1e5, in JAX."""
+    lp, labels, lengths, ll, infeasible = _ragged(seed, T=T, V=V, L=L)
+    got = _port_samplewise(lp, labels, lengths, ll, V)
+    ref = _jax_samplewise(lp, labels, lengths, ll, V)
+    assert (got[infeasible] == 1e5).all() and (ref[infeasible] >= 1e5).all()
+    assert (got[~infeasible] < 1e5).all()
+    np.testing.assert_allclose(got[~infeasible], ref[~infeasible], rtol=RTOL)
+
+
+@pytest.mark.parametrize("masked", [False, True])
+def test_ctc_loss_mean_logit_lengths_match_jax(masked):
+    """The mean over the feasible rows, with and without `sample_mask`,
+    against JAX's `ctc_loss_mean(logit_lengths=...)` (its infeasible rows'
+    surrogate differs from the port's 1e5, so they are masked out here)."""
+    lp, labels, lengths, ll, infeasible = _ragged(43)
+    keep = ~infeasible
+    mask = keep & (np.arange(len(keep)) % 3 != 1) if masked else keep
+    V = lp.shape[2]
+    ref = jctc.ctc_loss_mean(
+        jnp.asarray(lp), jnp.asarray(labels), jnp.asarray(lengths), pad_id=V,
+        logit_lengths=jnp.asarray(ll), sample_mask=jnp.asarray(mask))
+    got = tctc.ctc_loss_mean(
+        torch.from_numpy(lp), torch.from_numpy(labels),
+        torch.from_numpy(lengths), pad_id=V,
+        logit_lengths=torch.from_numpy(ll), sample_mask=torch.from_numpy(mask))
+    np.testing.assert_allclose(got.item(), float(ref), rtol=RTOL)
+
+
+def test_logit_lengths_all_t_is_bitwise_none():
+    """Lengths all equal to T give the `None` result bit for bit, loss and
+    gradient."""
+    lp, labels, lengths, _, _ = _ragged(44)
+    T, B, V = lp.shape
+    full = np.full(B, T, np.int32)
+    assert np.array_equal(_port_samplewise(lp, labels, lengths, full, V),
+                          _port_samplewise(lp, labels, lengths, None, V))
+    grads = []
+    for ll in (None, torch.from_numpy(full)):
+        x = torch.from_numpy(lp).requires_grad_()
+        tctc.ctc_loss_samplewise(x, torch.from_numpy(labels),
+                                 torch.from_numpy(lengths), pad_id=V,
+                                 logit_lengths=ll).sum().backward()
+        grads.append(x.grad)
+    assert torch.equal(grads[0], grads[1])
+
+
+def test_logit_lengths_row_equals_the_row_cut_to_its_steps():
+    """Each row equals, bit for bit, the same row run alone on its first T_b
+    steps with no lengths, and its gradient there too (0 after them)."""
+    lp, labels, lengths, ll, _ = _ragged(45)
+    V = lp.shape[2]
+    x = torch.from_numpy(lp).requires_grad_()
+    nll = tctc.ctc_loss_samplewise(x, torch.from_numpy(labels),
+                                   torch.from_numpy(lengths), pad_id=V,
+                                   logit_lengths=torch.from_numpy(ll))
+    nll.sum().backward()
+    for b, tb in enumerate(ll):
+        xb = torch.from_numpy(lp[:tb, b:b + 1].copy()).requires_grad_()
+        alone = tctc.ctc_loss_samplewise(
+            xb, torch.from_numpy(labels[b:b + 1]),
+            torch.from_numpy(lengths[b:b + 1]), pad_id=V)
+        alone.sum().backward()
+        assert alone.item() == nll[b].item(), b
+        assert torch.equal(xb.grad[:, 0], x.grad[:tb, b]), b
+        assert (x.grad[tb:, b] == 0).all(), b
+
+
+@pytest.mark.parametrize("bad,match", [
+    (lambda ll: ll * 0, r"\[1, T"),                   # a length of 0
+    (lambda ll: ll + 31, r"\[1, T"),                  # beyond T
+    (lambda ll: ll[:, None], "shape"),                # (B, 1)
+    (lambda ll: ll.float(), "integer"),               # not an integer
+    (lambda ll: ll.to("meta"), "log-probs on"),       # another device
+])
+def test_logit_lengths_refused(bad, match):
+    """What the kernels do not take raises `ValueError` before anything
+    runs, on the CPU path and in the kernels' own wrappers (which refuse
+    before they look for a GPU)."""
+    lp, labels, lengths, ll, _ = _ragged(46)
+    args = (torch.from_numpy(lp), torch.from_numpy(labels),
+            torch.from_numpy(lengths))
+    bad_ll = bad(torch.from_numpy(ll))
+    with pytest.raises(ValueError, match=match):
+        tctc.ctc_loss_samplewise(*args, pad_id=lp.shape[2],
+                                 logit_lengths=bad_ll)
+    with pytest.raises(ValueError, match=match):
+        ctc_cuda.check_logit_lengths(args[0], bad_ll)
 
 
 @pytest.mark.parametrize("seed", [0, 1, 2])

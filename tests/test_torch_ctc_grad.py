@@ -24,6 +24,7 @@ import numpy as np
 import pytest
 import torch
 
+from qea_ocr_tpu.ops import ctc as jctc
 from qea_ocr_tpu.ops.pallas.ctc_pallas import ctc_loss_pallas
 from qea_ocr_tpu.tracking.loss import weighted_ctc_loss as j_weighted
 from qea_ocr_tpu.tracking.weights import decaying_weights as j_decaying_weights
@@ -121,6 +122,72 @@ def test_explicit_backward_where_autograd_gives_nan():
     ctc_cuda._alpha_plain(y, labels, torch.from_numpy(lengths), V,
                           0)[0].sum().backward()
     assert torch.isnan(y.grad).any()
+
+
+@pytest.mark.parametrize("seed", [50, 51])
+def test_grad_with_logit_lengths_matches_jax(seed):
+    """Per-row valid steps T_b, drawn from the seed with T_b = 1 and T_b = T
+    among them and rows that fit T but not their T_b: the gradient against
+    `jax.grad` through JAX's `ctc_loss_samplewise(logit_lengths=...)` (its
+    optax path) on the rows an alignment fits. optax takes a log-softmax of
+    its scores, so both sides differentiate through one from the same
+    logits. The port's gradient is exactly 0 at every t >= T_b and on the
+    rows none fits; JAX's is finite everywhere."""
+    rng = np.random.default_rng(seed)
+    B = 10
+    x = rng.normal(size=(T, B, V)).astype(np.float32) * 3
+    lengths = rng.integers(0, 15, B).astype(np.int32)
+    lengths[:3] = 0, 14, 12
+    labels = _labels(rng, lengths)
+    ll = rng.integers(1, T + 1, B).astype(np.int32)
+    ll[:3] = 1, T, 9
+    labels[2, :12] = 1 + np.arange(12)        # 12 steps needed, 9 given
+    g = rng.uniform(0.5, 1.5, B).astype(np.float32)
+    ref = np.asarray(jax.grad(lambda a: jnp.sum(jnp.asarray(g) * (
+        jctc.ctc_loss_samplewise(
+            jax.nn.log_softmax(a, axis=2), jnp.asarray(labels),
+            jnp.asarray(lengths), pad_id=V,
+            logit_lengths=jnp.asarray(ll)))))(jnp.asarray(x)))
+    xt = torch.from_numpy(x).requires_grad_()
+    nll = tctc.ctc_loss_samplewise(
+        torch.log_softmax(xt, dim=2), torch.from_numpy(labels),
+        torch.from_numpy(lengths), pad_id=V,
+        logit_lengths=torch.from_numpy(ll))
+    (nll * torch.from_numpy(g)).sum().backward()
+    got, nll = xt.grad.numpy(), nll.detach().numpy()
+    live = nll < 1e5
+    assert not live[2] and live[:2].all() and np.isfinite(ref).all()
+    assert (got[:, ~live] == 0).all()
+    for b, tb in enumerate(ll):
+        assert (got[tb:, b] == 0).all(), b
+    assert np.abs(got).max() > 0.1
+    np.testing.assert_allclose(got[:, live], ref[:, live], atol=ATOL,
+                               rtol=RTOL)
+
+
+def test_logit_lengths_checked_once(monkeypatch):
+    """The check of `logit_lengths` reads them back to the host, so a
+    forward and backward through the loss runs it once, at the public
+    entry; `_CtcNll` passes the checked tensor on."""
+    calls = []
+    check = ctc_cuda.check_logit_lengths
+
+    def counted(lp, ll):
+        calls.append(1)
+        return check(lp, ll)
+    monkeypatch.setattr(ctc_cuda, "check_logit_lengths", counted)
+    rng = np.random.default_rng(52)
+    B = 4
+    lengths = np.array([3, 0, 5, 2], np.int32)
+    xt = torch.from_numpy(
+        rng.normal(size=(T, B, V)).astype(np.float32)).requires_grad_()
+    tctc.ctc_loss_mean(
+        torch.log_softmax(xt, dim=2), torch.from_numpy(_labels(rng, lengths)),
+        torch.from_numpy(lengths), pad_id=V,
+        logit_lengths=torch.tensor([T, 1, 20, 7], dtype=torch.int32)
+    ).backward()
+    assert len(calls) == 1
+    assert float(xt.grad.abs().sum()) > 0.0
 
 
 @pytest.mark.parametrize("decaying", [True, False])

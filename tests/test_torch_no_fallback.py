@@ -2,6 +2,7 @@
 the CPU or to a plain version when a GPU was asked for."""
 
 import os
+import re
 import subprocess
 import sys
 from pathlib import Path
@@ -46,7 +47,7 @@ def test_port_modules_never_import_jax():
                 "pruning.prune", "tools.prune_cli", "tools.cer_analysis",
                 "sweeps.sweep", "ocr.tesseract", "ocr.easyocr_backend",
                 "ocr.gvision", "ocr.stub_engines",
-                "tools.build_patch_dataset"):
+                "tools.build_patch_dataset", "tools.quality_run_area"):
         assert "qea_ocr_tpu_torch." + new in mods, new
     code = ("import importlib, sys\n"
             f"for m in {mods!r}: importlib.import_module(m)\n"
@@ -59,6 +60,22 @@ def test_port_modules_never_import_jax():
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr
     assert proc.stdout.startswith("ok")
+
+
+def test_port_launchers_never_call_jax():
+    """The port's shell launchers (`launch/*.sh`) run only the port's
+    modules: none names a module of the JAX package, JAX itself or its
+    platform variables, and each calls `qea_ocr_tpu_torch.` with
+    `--device`."""
+    launchers = sorted((PORT / "launch").glob("*.sh"))
+    assert len(launchers) == 6
+    for path in launchers:
+        text = path.read_text()
+        for bad in ("qea_ocr_tpu.", "jax", "JAX_", "QEA_PLATFORM"):
+            assert bad not in text, (path.name, bad)
+        assert re.search(r"(python -m|launch\[@\]}\") qea_ocr_tpu_torch\.",
+                         text), path.name
+        assert '--device "$DEVICE"' in text, path.name
 
 
 def test_chip_smoke_fails_without_a_gpu():
