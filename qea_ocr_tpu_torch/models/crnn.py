@@ -36,6 +36,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from qea_ocr_tpu_torch.models.unet import batch_norm, conv, reset_parameters
+from qea_ocr_tpu_torch.utils.metrics import backward_from, backward_to, span
 
 
 class ConvStack(nn.Module):
@@ -138,11 +139,15 @@ class CRNN(nn.Module):
         self.lstm.reset_parameters(g)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        dt = self.compute_dtype
-        feat = self.convo(x.to(dt), dt)                       # (B, C, 1, 31)
-        B, C, Hf, Wf = feat.shape
-        seq = feat.permute(0, 3, 2, 1).reshape(B, Wf, Hf * C)  # (B, T, C)
-        seq = self.lstm(seq, dt)
-        logits = F.linear(seq.to(dt), self.linear.weight.to(dt),
-                          self.linear.bias.to(dt))             # (B, T, V)
-        return torch.log_softmax(logits.transpose(0, 1).float(), dim=2)
+        with span("crnn.forward"):
+            x = backward_to(x, "crnn.backward")
+            dt = self.compute_dtype
+            feat = self.convo(x.to(dt), dt)                   # (B, C, 1, 31)
+            B, C, Hf, Wf = feat.shape
+            seq = feat.permute(0, 3, 2, 1).reshape(B, Wf, Hf * C)  # (B, T, C)
+            seq = self.lstm(seq, dt)
+            logits = F.linear(seq.to(dt), self.linear.weight.to(dt),
+                              self.linear.bias.to(dt))         # (B, T, V)
+            return backward_from(
+                torch.log_softmax(logits.transpose(0, 1).float(), dim=2),
+                "crnn.backward")

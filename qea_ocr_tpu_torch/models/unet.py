@@ -58,6 +58,7 @@ from qea_ocr_tpu_torch.ops.conv_cmajor import (
 from qea_ocr_tpu_torch.ops.cuda.conv_cmajor_cuda import grid_fits
 from qea_ocr_tpu_torch.parallel.multihost import (
     current_group, global_numel, global_sum_grad)
+from qea_ocr_tpu_torch.utils.metrics import backward_from, backward_to, span
 
 
 def reset_parameters(model: nn.Module, generator: torch.Generator) -> None:
@@ -328,13 +329,16 @@ class UNet(nn.Module):
                                  self.init_features, x.shape[0]) == "cmajor"
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        dt = self.compute_dtype
-        if self._use_cmajor(x):
-            return self._forward_cmajor(x)
-        x = x.to(dt)
-        enc1 = self.encoder1(x, dt)
-        enc2 = self.encoder2(F.max_pool2d(enc1, 2), dt)
-        return self._deep_and_decode(enc1, enc2)
+        with span("unet.forward"):
+            x = backward_to(x, "unet.backward")
+            if self._use_cmajor(x):
+                out = self._forward_cmajor(x)
+            else:
+                dt = self.compute_dtype
+                enc1 = self.encoder1(x.to(dt), dt)
+                enc2 = self.encoder2(F.max_pool2d(enc1, 2), dt)
+                out = self._deep_and_decode(enc1, enc2)
+            return backward_from(out, "unet.backward")
 
     def _deep_levels(self, pool2: torch.Tensor) -> torch.Tensor:
         """enc3 .. dec3 (always through the library) on pooled enc2."""

@@ -22,6 +22,7 @@ import torch
 
 from qea_ocr_tpu_torch.ops.cuda import ctc_cuda
 from qea_ocr_tpu_torch.parallel.multihost import global_count, global_mean
+from qea_ocr_tpu_torch.utils.metrics import span
 
 
 def ctc_loss_samplewise(scores: torch.Tensor, labels: torch.Tensor,
@@ -30,10 +31,11 @@ def ctc_loss_samplewise(scores: torch.Tensor, labels: torch.Tensor,
                         logit_lengths: torch.Tensor | None = None
                         ) -> torch.Tensor:
     """Per-sample CTC NLL, (B,) float32 (not length-normalised)."""
-    return ctc_cuda.ctc_nll(scores.float().contiguous(),
-                            labels.int().contiguous(),
-                            label_lengths.int().contiguous(), pad_id, blank_id,
-                            logit_lengths)
+    with span("ctc"):
+        return ctc_cuda.ctc_nll(scores.float().contiguous(),
+                                labels.int().contiguous(),
+                                label_lengths.int().contiguous(), pad_id,
+                                blank_id, logit_lengths)
 
 
 def ctc_loss_mean(scores: torch.Tensor, labels: torch.Tensor,

@@ -17,6 +17,7 @@ from __future__ import annotations
 import torch
 
 from qea_ocr_tpu_torch.ops.cuda import gather_cuda
+from qea_ocr_tpu_torch.utils.metrics import backward_from, backward_to, span
 
 
 def get_text_stack(doc: torch.Tensor, bboxes: torch.Tensor,
@@ -33,4 +34,8 @@ def get_text_stack_batch(docs: torch.Tensor, bboxes: torch.Tensor,
                          h_out: int = 32, w_out: int = 128) -> torch.Tensor:
     """docs (D, 1, H, W) float32, bboxes (D, S, 4) int32
     -> (D, S, 1, h_out, w_out) strips."""
-    return gather_cuda.text_stack(docs, bboxes, h_out, w_out)[:, :, None]
+    with span("gather"):
+        docs = backward_to(docs, "gather.backward")
+        return backward_from(
+            gather_cuda.text_stack(docs, bboxes, h_out, w_out)[:, :, None],
+            "gather.backward")

@@ -32,6 +32,8 @@ from typing import Callable, Dict
 import numpy as np
 import torch
 
+from qea_ocr_tpu_torch.utils.metrics import span
+
 _SENTINEL = 100.0
 _BIG_RANK = 10 ** 6
 
@@ -130,12 +132,13 @@ def select_batch(method: str, generator: torch.Generator | None,
     Returns bb_mask (D, S) bool, the strips that query the black box this
     step, and k (D,) int32, the per-document query count
     max(1, ceil(n_valid * (1 - prop))), at most n_valid."""
-    ranks = RANK_KERNELS[method](generator, estimates, valid, noise)
-    n_valid = valid.sum(dim=1).float()
-    k = torch.ceil(n_valid * (1.0 - prop)).clamp(min=1).to(torch.int32)
-    k = torch.minimum(k, n_valid.to(torch.int32))
-    k = torch.maximum(k, (n_valid > 0).to(torch.int32))
-    return ranks < k[:, None], k
+    with span("select"):
+        ranks = RANK_KERNELS[method](generator, estimates, valid, noise)
+        n_valid = valid.sum(dim=1).float()
+        k = torch.ceil(n_valid * (1.0 - prop)).clamp(min=1).to(torch.int32)
+        k = torch.minimum(k, n_valid.to(torch.int32))
+        k = torch.maximum(k, (n_valid > 0).to(torch.int32))
+        return ranks < k[:, None], k
 
 
 def membership_mask(strip_ids: torch.Tensor,

@@ -24,6 +24,7 @@ gathers every rank's rows, so each rank returns the whole list.
 from __future__ import annotations
 
 import dataclasses
+import itertools
 import json
 import os
 from concurrent.futures import ThreadPoolExecutor
@@ -39,6 +40,7 @@ from qea_ocr_tpu_torch.parallel.multihost import (
     all_gather_objects, process_shard, process_sum, rank_device)
 from qea_ocr_tpu_torch.tools.convert import load_state_dict_file
 from qea_ocr_tpu_torch.utils.device import resolve_device
+from qea_ocr_tpu_torch.utils.metrics import span
 
 
 @dataclasses.dataclass
@@ -112,16 +114,11 @@ class DocumentCleaner:
         return pad_white(np.asarray(img, np.float32), *self.doc_size)
 
     def _batches(self, it: Iterable[np.ndarray]):
-        batch, geoms = [], []
-        for img in it:
-            canvas, geom = self._fit(img)
-            batch.append(canvas)
-            geoms.append(geom)
-            if len(batch) == self.batch_size:
-                yield batch, geoms
-                batch, geoms = [], []
-        if batch:
-            yield batch, geoms
+        it = iter(it)
+        while chunk := list(itertools.islice(it, self.batch_size)):
+            with span("fit"):
+                fitted = [self._fit(img) for img in chunk]
+            yield [c for c, _ in fitted], [g for _, g in fitted]
 
     def _dispatch(self, batch: List[np.ndarray], size: int | None = None
                   ) -> torch.Tensor:
@@ -131,11 +128,13 @@ class DocumentCleaner:
         the device."""
         n = len(batch)
         size = self.batch_size if size is None else size
-        arr = np.full((size, 1, *self.doc_size), 255, np.uint8)
-        if n:
-            arr[:n] = np.round(np.stack(batch)[:, None] * 255.0).clip(
-                0, 255).astype(np.uint8)
-        images = torch.from_numpy(arr).to(self.device)
+        with span("quantise"):
+            arr = np.full((size, 1, *self.doc_size), 255, np.uint8)
+            if n:
+                arr[:n] = np.round(np.stack(batch)[:, None] * 255.0).clip(
+                    0, 255).astype(np.uint8)
+        with span("upload"):
+            images = torch.from_numpy(arr).to(self.device)
         return self._forward(images)[:n]
 
     def _my_rows(self, n: int) -> slice:
@@ -154,16 +153,25 @@ class DocumentCleaner:
         content regions as uint8 at processing resolution (shrunk inputs
         stay shrunk)."""
         out: List[np.ndarray] = []
-        for batch, geoms in self._batches(iter(images)):
-            if self._world == 1:
-                cleaned = self._dispatch(batch).cpu().numpy()
-                out.extend(self._crop(cleaned, geoms))
-                continue
-            # this rank's rows, then every rank's crops in rank order
-            rows = self._my_rows(len(batch))
-            mine = self._dispatch(batch[rows], self._local).cpu().numpy()
-            for part in all_gather_objects(self._crop(mine, geoms[rows])):
-                out.extend(part)
+        with span("clean"):
+            for batch, geoms in self._batches(images):
+                if self._world == 1:
+                    dev = self._dispatch(batch)
+                else:
+                    # this rank's rows, then every rank's crops in rank
+                    # order
+                    rows = self._my_rows(len(batch))
+                    batch, geoms = batch[rows], geoms[rows]
+                    dev = self._dispatch(batch, self._local)
+                with span("download"):
+                    cleaned = dev.cpu().numpy()
+                with span("crop"):
+                    crops = self._crop(cleaned, geoms)
+                if self._world == 1:
+                    out.extend(crops)
+                else:
+                    for part in all_gather_objects(crops):
+                        out.extend(part)
         return out
 
     def clean_arrays(self, images: Sequence[np.ndarray]) -> List[np.ndarray]:

@@ -8,13 +8,13 @@ strip slots, bfloat16 policy) on the batch of `tools/bench_batch.py`:
   1. `prep_extract` + jitter, and `phase_ab`, timed with CUDA events and on
      the host clock with a synchronise (median of `--steps` steps after two
      of warm-up), and the peak device memory;
-  2. the stages of the step, each run alone at the step's shapes and timed
-     with CUDA events (median): they overlap nothing, so their sum against
-     the whole step shows what the isolation leaves out;
-  3. a `torch.profiler` trace of `--steps` steps: device time in all and per
-     step, the share of a step (part 1's host time) in which the device ran
-     nothing, the number of kernel launches, and the heaviest kernels by
-     name;
+  2. one `torch.profiler` stretch of `--steps` steps (device activity
+     only, as the benchmark traces): the program's spans
+     (`utils/metrics.span`) by name, each with its count, host ms and
+     stream ms a step;
+  3. from the same stretch: its window, the device's busy time (the union
+     of its kernels, copies and sets), the idle share, the number of
+     device operations and the heaviest by name;
   4. the UNet eval forward through the library layout and through the
      channel-major twin (the trainer's no-grad forwards with
      `QEA_CONV_IMPL=cmajor`): for each the device time, the launches and
@@ -34,19 +34,15 @@ import time
 
 import numpy as np
 import torch
-from torch import nn
 
 from qea_ocr_tpu_torch.data import CharMap
 from qea_ocr_tpu_torch.models.crnn import CRNN
 from qea_ocr_tpu_torch.models.unet import UNet
-from qea_ocr_tpu_torch.ops.ctc import ctc_loss_mean, greedy_decode
-from qea_ocr_tpu_torch.ops.edit_distance import cer_from_labels
-from qea_ocr_tpu_torch.ops.entropy import mean_sequence_entropy
-from qea_ocr_tpu_torch.ops.text_stack import get_text_stack_batch
 from qea_ocr_tpu_torch.tools.bench_batch import (
     bench_batch, extract_and_jitter, phase_ab)
 from qea_ocr_tpu_torch.train.patch_steps import make_steps
 from qea_ocr_tpu_torch.train.state import adam_l2
+from qea_ocr_tpu_torch.utils import metrics
 from qea_ocr_tpu_torch.utils.device import resolve_device
 
 S = 16
@@ -69,94 +65,52 @@ def event_ms(fn, warmup: int = 2, iters: int = 7) -> float:
     return float(np.median(times))
 
 
-def _grads_off(model: nn.Module):
-    for p in model.parameters():
-        p.grad = None
-
-
-def stages(unet, crnn, cm, b, strips, jitter, prep_opt, crnn_opt) -> dict:
-    """Each stage of `phase_ab` alone, at its shapes in the step."""
-    D = b["images"].shape[0]
-    N = D * S
-    L = cm.max_len
-    out = {}
-    unet.train()
-    crnn.eval()
-
-    def unet_fwd_bwd():
-        _grads_off(unet)
-        ((unet(b["images"]) - 1.0) ** 2).mean().backward()
-    with torch.no_grad():
-        out["unet_eval_forward"] = event_ms(lambda: unet.eval()(b["images"]))
-        unet.train()
-    out["unet_train_forward"] = event_ms(lambda: unet(b["images"]))
-    out["unet_train_forward_backward"] = event_ms(unet_fwd_bwd)
-
-    rows_a = torch.cat([strips, jitter[0]])           # phase A: 2N rows
-
-    def crnn_a():
-        _grads_off(crnn)
-        crnn(rows_a).sum().backward()
-    leaf = strips.clone().requires_grad_()
-
-    def crnn_b():
-        crnn(leaf).sum().backward(inputs=[leaf])
-    out["crnn_forward_phase_a_rows"] = event_ms(lambda: crnn(rows_a))
-    out["crnn_forward_backward_phase_a"] = event_ms(crnn_a)
-    out["crnn_forward_phase_b_rows"] = event_ms(lambda: crnn(leaf))
-    out["crnn_forward_backward_phase_b_inputs_only"] = event_ms(crnn_b)
-
-    scores = crnn(strips).detach()
-    labels = b["gt_labels"].reshape(N, L)
-    lengths = b["gt_lengths"].reshape(N)
-
-    def ctc_three():
-        for _ in range(3):
-            x = scores.clone().requires_grad_()
-            ctc_loss_mean(x, labels, lengths, pad_id=cm.pad_id).backward()
-    out["ctc_forward_backward_x3"] = event_ms(ctc_three)
-    docs = torch.rand_like(b["images"]).requires_grad_()
-
-    def gather():
-        get_text_stack_batch(docs, b["bboxes"]).sum().backward()
-    out["gather_forward_backward"] = event_ms(gather)
-
-    def cer():
-        dec, dec_len = greedy_decode(scores, pad_id=cm.pad_id)
-        cer_from_labels(dec[:, :L], dec_len.clamp(max=L), labels, lengths)
-        mean_sequence_entropy(scores)
-    with torch.no_grad():
-        out["decode_cer_entropy"] = event_ms(cer)
-    unet_fwd_bwd()
-    crnn_a()
-    out["adam_unet"] = event_ms(prep_opt.step)
-    out["adam_crnn"] = event_ms(crnn_opt.step)
-    unet.eval()
-    return out
-
-
 def kernel_profile(fn, reps: int):
-    """`reps` calls of `fn` under `torch.profiler`: the wall time (ms, host
-    clock with a synchronise) and {kernel name: (device ms, launches)}.
-    Kernels and device copies only: the operator events above them carry the
-    same device time again."""
-    from torch.autograd import DeviceType
+    """`reps` calls of `fn` under `torch.profiler` with device activity
+    only: the stretch's wall time (ms, host clock ended by a synchronise),
+    the device's busy ms in it (the union of its operations' intervals),
+    {operation name: (device ms, count)} and the program's spans of the
+    stretch (drained)."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    metrics.drain()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
         wall_ms = 1e3 * (time.perf_counter() - t0)
+    spans = metrics.drain()
     by_name: dict = {}
-    for e in prof.events():
-        if e.device_type == DeviceType.CUDA:
-            ms, count = by_name.get(e.name, (0.0, 0))
-            by_name[e.name] = (ms + e.time_range.elapsed_us() / 1e3, count + 1)
-    return wall_ms, by_name
+    ivals = []
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() == torch.autograd.DeviceType.CUDA:
+            ms, count = by_name.get(e.name(), (0.0, 0))
+            by_name[e.name()] = (ms + e.duration_ns() / 1e6, count + 1)
+            ivals.append((e.start_ns(), e.start_ns() + e.duration_ns()))
+    busy_ns, end = 0, None
+    for a, b in sorted(ivals):
+        if end is None or a > end:
+            busy_ns, end = busy_ns + b - a, b
+        elif b > end:
+            busy_ns, end = busy_ns + b - end, b
+    return wall_ms, busy_ns / 1e6, by_name, spans
+
+
+def spans_by_name(spans, steps: int) -> dict:
+    """{name: {"n", "host_ms", "stream_ms"}} a step, in order of first
+    appearance."""
+    out: dict = {}
+    for s in spans:
+        r = out.setdefault(s.name, {"n": 0, "host_ms": 0.0,
+                                    "stream_ms": 0.0})
+        r["n"] += 1
+        r["host_ms"] += s.host_ms
+        r["stream_ms"] += s.stream_ms or 0.0
+    return {k: {"n": v["n"] / steps, "host_ms": v["host_ms"] / steps,
+                "stream_ms": v["stream_ms"] / steps}
+            for k, v in out.items()}
 
 
 def heaviest(by_name: dict, n: int) -> list:
@@ -207,19 +161,14 @@ def main(argv=None) -> None:
         lambda: extract_and_jitter(steps, b, gen))
     report["phase_ab_ms"] = event_ms(
         lambda: phase_ab(steps, b, strips, jitter))
-    report["stages_ms"] = stages(unet, crnn, cm, b, strips, jitter, prep_opt,
-                                 crnn_opt)
 
-    wall_ms, by_name = kernel_profile(one_step, args.steps)
-    busy_ms = sum(ms for ms, _ in by_name.values())
+    wall_ms, busy_ms, by_name, spans = kernel_profile(one_step, args.steps)
+    report["spans"] = spans_by_name(spans, args.steps)
+    device_ms = sum(ms for ms, _ in by_name.values())
     report["profile"] = {
-        "steps": args.steps, "wall_ms": wall_ms, "device_ms": busy_ms,
-        # the profiler's own host cost stretches its window, so the idle
-        # share is also given against the unprofiled step time of part 1
-        "device_idle_share_profiled": 1.0 - busy_ms / wall_ms,
-        "device_ms_per_step": busy_ms / args.steps,
-        "device_idle_share": 1.0 - busy_ms / args.steps
-        / report["step_host_ms"],
+        "steps": args.steps, "wall_ms": wall_ms, "busy_ms": busy_ms,
+        "device_ms": device_ms, "device_ms_per_step": device_ms / args.steps,
+        "device_idle_share": 1.0 - busy_ms / wall_ms,
         "device_events": sum(n for _, n in by_name.values()),
         "top_device_ms": heaviest(by_name, 12)}
 
@@ -229,7 +178,8 @@ def main(argv=None) -> None:
     with torch.no_grad():
         for name, model in (("library", unet), ("twin", twin)):
             model(b["images"])                      # warm-up
-            _, by_name = kernel_profile(lambda: model(b["images"]), args.steps)
+            _, _, by_name, _ = kernel_profile(lambda: model(b["images"]),
+                                              args.steps)
             report["unet_eval_forward"][name] = {
                 "device_ms": sum(ms for ms, _ in by_name.values()) / args.steps,
                 "device_events": sum(n for _, n in by_name.values())
@@ -239,10 +189,12 @@ def main(argv=None) -> None:
 
     print(f"card: {card}; torch {torch.__version__}")
     for k, v in report.items():
-        if k not in ("stages_ms", "profile", "unet_eval_forward"):
+        if k not in ("spans", "profile", "unet_eval_forward"):
             print(f"{k}: {v}")
-    for k, v in report["stages_ms"].items():
-        print(f"  stage {k}: {v:.3f} ms")
+    print("program spans, a step:        n    host ms  stream ms")
+    for k, v in report["spans"].items():
+        print(f"  {k:24s} {v['n']:5.1f} {v['host_ms']:10.3f} "
+              f"{v['stream_ms']:10.3f}")
     for k, v in report["profile"].items():
         if k != "top_device_ms":
             print(f"  profile {k}: {v}")

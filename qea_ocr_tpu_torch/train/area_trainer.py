@@ -79,7 +79,7 @@ from qea_ocr_tpu_torch.utils.device import resolve_device
 from qea_ocr_tpu_torch.utils.io import (
     ExpDirs, load_checkpoint, load_json, save_checkpoint, save_image_png,
     save_json)
-from qea_ocr_tpu_torch.utils.metrics import MetricsLogger
+from qea_ocr_tpu_torch.utils.metrics import MetricsLogger, span
 
 
 @dataclasses.dataclass
@@ -162,7 +162,7 @@ def make_area_steps(prep_model: nn.Module, crnn_model: nn.Module, charmap, *,
     @torch.no_grad()
     def prep_forward(images):
         """The UNet's eval-mode output on (B, 1, 32, 128) crops."""
-        with model_modes(frozen=(prep_model,)):
+        with span("prep_forward"), model_modes(frozen=(prep_model,)):
             return prep_model(images)
 
     def phase_b(images, gt_labels, cer_table, ent_table, gt_lengths,
@@ -179,24 +179,27 @@ def make_area_steps(prep_model: nn.Module, crnn_model: nn.Module, charmap, *,
         pairs = [(prep_optimizer, prep_model)]
         if update_crnn:
             pairs.append((crnn_optimizer, crnn_model))
-        with model_modes(train=(prep_model,), frozen=(crnn_model,)):
-            img_out = prep_model(images)
-            scores = crnn_model(img_out)
-            loss = (ctc_loss_mean(scores, gt_labels, gt_lengths,
-                                  pad_id=pad_id)
-                    + global_mean((img_out - 1.0) ** 2) * sec_loss_scalar)
-            optimizer_step(loss, *pairs)
-        with torch.no_grad():
-            scores = scores.detach()
-            dec, dec_len = greedy_decode(scores, pad_id=pad_id)
-            cers = cer_from_labels(dec[:, :max_len],
-                                   dec_len.clamp(max=max_len), gt_labels,
-                                   gt_lengths)
-            # every rank writes every rank's rows
-            ids = gather_rows(strip_ids.long())
-            cer_table[ids] = gather_rows(cers).to(cer_table.dtype)
-            ent_table[ids] = gather_rows(
-                mean_sequence_entropy(scores)).to(ent_table.dtype)
+        with span("phase_b"):
+            with model_modes(train=(prep_model,), frozen=(crnn_model,)):
+                img_out = prep_model(images)
+                scores = crnn_model(img_out)
+                with span("loss"):
+                    loss = (ctc_loss_mean(scores, gt_labels, gt_lengths,
+                                          pad_id=pad_id)
+                            + global_mean((img_out - 1.0) ** 2)
+                            * sec_loss_scalar)
+                optimizer_step(loss, *pairs)
+            with span("tables"), torch.no_grad():
+                scores = scores.detach()
+                dec, dec_len = greedy_decode(scores, pad_id=pad_id)
+                cers = cer_from_labels(dec[:, :max_len],
+                                       dec_len.clamp(max=max_len), gt_labels,
+                                       gt_lengths)
+                # every rank writes every rank's rows
+                ids = gather_rows(strip_ids.long())
+                cer_table[ids] = gather_rows(cers).to(cer_table.dtype)
+                ent_table[ids] = gather_rows(
+                    mean_sequence_entropy(scores)).to(ent_table.dtype)
         return (img_out.detach(), dict(loss=reported(loss), cers=cers),
                 cer_table, ent_table)
 

@@ -56,6 +56,7 @@ from qea_ocr_tpu_torch.parallel.multihost import (
 from qea_ocr_tpu_torch.parallel.tp import is_sharded, unsharded
 from qea_ocr_tpu_torch.tracking.loss import weighted_ctc_loss
 from qea_ocr_tpu_torch.train.crnn_trainer import scrub_nonfinite
+from qea_ocr_tpu_torch.utils.metrics import span
 
 
 @contextlib.contextmanager
@@ -90,14 +91,16 @@ def optimizer_step(loss: torch.Tensor,
     params = [p for _, model in pairs for p in model.parameters()]
     for opt, _ in pairs:
         opt.zero_grad(set_to_none=True)
-    if any(is_sharded(model) for _, model in pairs):
-        loss.backward()
-    else:
-        loss.backward(inputs=params)
-    sum_gradients(params)
-    scrub_nonfinite(params)
-    for opt, _ in pairs:
-        opt.step()
+    with span("backward"):
+        if any(is_sharded(model) for _, model in pairs):
+            loss.backward()
+        else:
+            loss.backward(inputs=params)
+    with span("optimizer"):
+        sum_gradients(params)
+        scrub_nonfinite(params)
+        for opt, _ in pairs:
+            opt.step()
 
 
 def _chunk(x: torch.Tensor, G: int, dim: int = 0) -> tuple[torch.Tensor, ...]:
@@ -166,17 +169,18 @@ def make_steps(prep_model: nn.Module, crnn_model: nn.Module, charmap, *,
         (the reference's batch-size-1 weighting, batched). Padded documents
         (all-false strip_mask) contribute nothing."""
         D, S = strip_mask.shape
-        per = ctc_loss_samplewise(scores, flat_labels, flat_lengths,
-                                  pad_id=pad_id)
-        per = per / flat_lengths.clamp(min=1).to(per.dtype)
-        m = strip_mask.to(per.dtype)
-        per_doc_ctc = ((per.reshape(D, S) * m).sum(dim=1)
-                       / m.sum(dim=1).clamp(min=1.0))
-        per_doc_mse = ((doc_out - 1.0) ** 2).mean(dim=(1, 2, 3))
-        per_doc = per_doc_ctc + sec_loss_scalar * per_doc_mse
-        doc_mask = strip_mask.any(dim=1).to(per.dtype)
-        return ((per_doc * doc_mask).sum()
-                / global_count(doc_mask.sum()).clamp(min=1.0))
+        with span("loss"):
+            per = ctc_loss_samplewise(scores, flat_labels, flat_lengths,
+                                      pad_id=pad_id)
+            per = per / flat_lengths.clamp(min=1).to(per.dtype)
+            m = strip_mask.to(per.dtype)
+            per_doc_ctc = ((per.reshape(D, S) * m).sum(dim=1)
+                           / m.sum(dim=1).clamp(min=1.0))
+            per_doc_mse = ((doc_out - 1.0) ** 2).mean(dim=(1, 2, 3))
+            per_doc = per_doc_ctc + sec_loss_scalar * per_doc_mse
+            doc_mask = strip_mask.any(dim=1).to(per.dtype)
+            return ((per_doc * doc_mask).sum()
+                    / global_count(doc_mask.sum()).clamp(min=1.0))
 
     def _extract(images, bboxes, model=prep_model):
         D, S = bboxes.shape[:2]
@@ -190,7 +194,8 @@ def make_steps(prep_model: nn.Module, crnn_model: nn.Module, charmap, *,
         """UNet eval forward + strip gather: (doc_out (D, 1, H, W),
         strips (D*S, 1, h_out, w_out)), no gradient (phase A treats the
         UNet as frozen)."""
-        with twin_view(), model_modes(frozen=(prep_eval_model,)):
+        with span("prep_extract"), twin_view(), \
+                model_modes(frozen=(prep_eval_model,)):
             return _extract(images, bboxes, prep_eval_model)
 
     # ------------------------------------------------------------------
@@ -220,24 +225,27 @@ def make_steps(prep_model: nn.Module, crnn_model: nn.Module, charmap, *,
             raise ValueError("phase A has nothing to train on: "
                              "inner_limit_skip is false and there are no "
                              "jitter images")
-        with model_modes(frozen=(crnn_model,)):
+        with span("phase_a"), model_modes(frozen=(crnn_model,)):
             if len(parts) * N <= phase_a_batch_rows:
                 # time-major (T, B, V): the parts lie along axis 1
                 part_scores = crnn_model(torch.cat(parts, dim=0)).split(
                     N, dim=1)
             else:
                 part_scores = [crnn_model(p) for p in parts]
-            total = 0.0
-            k = 0
-            if inner_limit_skip:
-                total = total + weighted_ctc_loss(
-                    part_scores[0], hist_labels, hist_lengths, hist_valid,
-                    loss_weights, pad_id=pad_id, decaying=decaying)
-                k = 1
-            for i in range(I):
-                total = total + ctc_loss_mean(
-                    part_scores[k + i], jitter_labels[i], jitter_lengths[i],
-                    pad_id=pad_id, sample_mask=bb_mask)
+            with span("loss"):
+                total = 0.0
+                k = 0
+                if inner_limit_skip:
+                    total = total + weighted_ctc_loss(
+                        part_scores[0], hist_labels, hist_lengths,
+                        hist_valid, loss_weights, pad_id=pad_id,
+                        decaying=decaying)
+                    k = 1
+                for i in range(I):
+                    total = total + ctc_loss_mean(
+                        part_scores[k + i], jitter_labels[i],
+                        jitter_lengths[i], pad_id=pad_id,
+                        sample_mask=bb_mask)
             optimizer_step(total, (opt, crnn_model))
         return reported(total)
 
@@ -253,33 +261,38 @@ def make_steps(prep_model: nn.Module, crnn_model: nn.Module, charmap, *,
         flat_labels = gt_labels.reshape(N, max_len)
         flat_lengths = gt_lengths.reshape(N)
 
-        # UNet in train mode (its batch statistics move); CRNN with frozen
-        # batch statistics, its parameters updated only when update_crnn
-        with model_modes(train=(prep_model,), frozen=(crnn_model,)):
-            doc_out, strips = _extract(images, bboxes)
-            scores = crnn_model(strips)
-            loss = _per_doc_loss(scores, flat_labels, flat_lengths,
-                                 strip_mask, doc_out)
-            optimizer_step(loss, *pairs)
+        with span("phase_b"):
+            # UNet in train mode (its batch statistics move); CRNN with
+            # frozen batch statistics, its parameters updated only when
+            # update_crnn
+            with model_modes(train=(prep_model,), frozen=(crnn_model,)):
+                doc_out, strips = _extract(images, bboxes)
+                scores = crnn_model(strips)
+                loss = _per_doc_loss(scores, flat_labels, flat_lengths,
+                                     strip_mask, doc_out)
+                optimizer_step(loss, *pairs)
 
-        # CER and entropy of every strip, written at the unmasked strip ids
-        with torch.no_grad():
-            scores = scores.detach()
-            dec, dec_len = greedy_decode(scores, pad_id=pad_id)
-            cers = cer_from_labels(
-                dec[:, :max_len], dec_len.clamp(max=max_len), flat_labels,
-                flat_lengths)                                        # (N,)
-            ents = mean_sequence_entropy(scores)                     # (N,)
-            # a masked row is sent to one slot past the table, which is cut
-            # off again: it writes nothing (no stale value, no data-dependent
-            # shape). In a data group every rank writes every rank's rows.
-            ids = gather_rows(torch.where(
-                flat_mask, strip_ids.reshape(N).long(), cer_table.shape[0]))
-            for table, values in ((cer_table, gather_rows(cers)),
-                                  (ent_table, gather_rows(ents))):
-                grown = torch.cat([table, table.new_zeros(1)])
-                grown[ids] = values.to(table.dtype)
-                table.copy_(grown[:-1])
+            # CER and entropy of every strip, written at the unmasked strip
+            # ids
+            with span("tables"), torch.no_grad():
+                scores = scores.detach()
+                dec, dec_len = greedy_decode(scores, pad_id=pad_id)
+                cers = cer_from_labels(
+                    dec[:, :max_len], dec_len.clamp(max=max_len),
+                    flat_labels, flat_lengths)                       # (N,)
+                ents = mean_sequence_entropy(scores)                 # (N,)
+                # a masked row is sent to one slot past the table, which is
+                # cut off again: it writes nothing (no stale value, no
+                # data-dependent shape). In a data group every rank writes
+                # every rank's rows.
+                ids = gather_rows(torch.where(
+                    flat_mask, strip_ids.reshape(N).long(),
+                    cer_table.shape[0]))
+                for table, values in ((cer_table, gather_rows(cers)),
+                                      (ent_table, gather_rows(ents))):
+                    grown = torch.cat([table, table.new_zeros(1)])
+                    grown[ids] = values.to(table.dtype)
+                    table.copy_(grown[:-1])
         metrics = dict(loss=reported(loss), cers=cers, decoded=dec,
                        decoded_len=dec_len)
         return doc_out.detach(), metrics, cer_table, ent_table
@@ -336,35 +349,40 @@ def make_steps(prep_model: nn.Module, crnn_model: nn.Module, charmap, *,
         with the current UNet (one more eval forward per chunk), the
         reference's pairing of fresh pixels with the tracked label history;
         the jitter images keep the pixels their OCR labels were read from."""
-        a_kw = dict(decaying=decaying, inner_limit_skip=inner_limit_skip)
-        if micro_steps <= 1:
-            loss_a = phase_a(strips, bb_mask, hist_labels, hist_lengths,
-                             hist_valid, loss_weights, jitter_images,
-                             jitter_labels, jitter_lengths, **a_kw)
-            return (*_phase_b_one(images, bboxes, strip_mask, gt_labels,
-                                  cer_table, ent_table, gt_lengths, strip_ids,
-                                  update_crnn=update_crnn), loss_a)
-        G = micro_steps
-        doc_xs = zip(*(_chunk(a, G) for a in (
-            images, bboxes, strip_mask, gt_labels, gt_lengths, strip_ids)))
-        strip_xs = zip(*(_chunk(a, G) for a in (
-            strips, bb_mask, hist_labels, hist_lengths, hist_valid)))
-        # (W,) decaying scalars are shared by every chunk
-        lw_xs = [loss_weights] * G if decaying else _chunk(loss_weights, G)
-        # the jitter stacks are (I, N, ...): split the strip-row axis
-        jit_xs = zip(*(_chunk(a, G, dim=1) for a in (
-            jitter_images, jitter_labels, jitter_lengths)))
-        outs, losses_a = [], []
-        for (im, bb, sm, gl, glen, sid), (st, bbm, hl, hlen, hv), lw, \
-                (ji, jl, jlen) in zip(doc_xs, strip_xs, lw_xs, jit_xs):
-            if micro_refresh:
-                st = prep_extract(im, bb)[1]
-            losses_a.append(phase_a(st, bbm, hl, hlen, hv, lw, ji, jl, jlen,
-                                    **a_kw))
-            outs.append(_phase_b_one(im, bb, sm, gl, cer_table, ent_table,
-                                     glen, sid, update_crnn=update_crnn)[:2])
-        return (*_stack_metrics(outs), cer_table, ent_table,
-                torch.stack(losses_a).mean())
+        with span("phase_ab"):
+            a_kw = dict(decaying=decaying, inner_limit_skip=inner_limit_skip)
+            if micro_steps <= 1:
+                loss_a = phase_a(strips, bb_mask, hist_labels, hist_lengths,
+                                 hist_valid, loss_weights, jitter_images,
+                                 jitter_labels, jitter_lengths, **a_kw)
+                return (*_phase_b_one(images, bboxes, strip_mask, gt_labels,
+                                      cer_table, ent_table, gt_lengths,
+                                      strip_ids, update_crnn=update_crnn),
+                        loss_a)
+            G = micro_steps
+            doc_xs = zip(*(_chunk(a, G) for a in (
+                images, bboxes, strip_mask, gt_labels, gt_lengths,
+                strip_ids)))
+            strip_xs = zip(*(_chunk(a, G) for a in (
+                strips, bb_mask, hist_labels, hist_lengths, hist_valid)))
+            # (W,) decaying scalars are shared by every chunk
+            lw_xs = ([loss_weights] * G if decaying
+                     else _chunk(loss_weights, G))
+            # the jitter stacks are (I, N, ...): split the strip-row axis
+            jit_xs = zip(*(_chunk(a, G, dim=1) for a in (
+                jitter_images, jitter_labels, jitter_lengths)))
+            outs, losses_a = [], []
+            for (im, bb, sm, gl, glen, sid), (st, bbm, hl, hlen, hv), lw, \
+                    (ji, jl, jlen) in zip(doc_xs, strip_xs, lw_xs, jit_xs):
+                if micro_refresh:
+                    st = prep_extract(im, bb)[1]
+                losses_a.append(phase_a(st, bbm, hl, hlen, hv, lw, ji, jl,
+                                        jlen, **a_kw))
+                outs.append(_phase_b_one(
+                    im, bb, sm, gl, cer_table, ent_table, glen, sid,
+                    update_crnn=update_crnn)[:2])
+            return (*_stack_metrics(outs), cer_table, ent_table,
+                    torch.stack(losses_a).mean())
 
     # ------------------------------------------------------------------
     def prep_pretrain_step(images):
