@@ -4,9 +4,14 @@ of `qea_ocr_tpu/serve/cleaner.py`).
 Documents of any size are fitted into one fixed processing canvas (white
 padding; an aspect-preserving shrink when larger, the geometry
 `PatchDocuments` uses), cleaned in fixed-size batches, and cropped back.
-Both host-device transfers are uint8: normalisation and quantisation
-happen on the device. `clean_dir` keeps one batch in flight while the
-previous one is written, since CUDA work is queued asynchronously.
+The host packs a batch's float32 documents end to end into a staging
+buffer (page-locked on CUDA) and uploads that packed content in one copy;
+the device quantises it to uint8 and places each document on a white
+canvas; the cleaned canvases come back as uint8. `clean_dir` keeps one
+batch in flight while the previous one is written, since CUDA work is
+queued asynchronously: so the cleaner packs into two staging buffers in
+turn, and waits for a buffer's last upload before it writes that buffer
+again.
 
 Weights come from a reference-schema state_dict: a checkpoint of the port's
 trainers, the file `qea_ocr_tpu.tools.export_torch.export_prep` writes, or a
@@ -28,7 +33,7 @@ import itertools
 import json
 import os
 from concurrent.futures import ThreadPoolExecutor
-from typing import Iterable, List, Mapping, Optional, Sequence, Tuple
+from typing import List, Mapping, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -52,24 +57,20 @@ class _Geometry:
     w: int
 
 
-def pad_white(img: np.ndarray, h: int, w: int
-              ) -> Tuple[np.ndarray, _Geometry]:
-    """Centre `img` (H, W) float [0, 1] on a white (h, w) canvas, first
-    shrinking it aspect-preserving (Pillow's `thumbnail`) when it does not
-    fit (`data.datasets.pad_white`'s geometry). Pillow is
-    imported only for a shrink."""
+def _fit(img: np.ndarray, h: int, w: int) -> Tuple[np.ndarray, _Geometry]:
+    """`img` (H, W) float [0, 1] as it goes into a white (h, w) canvas, and
+    its place there, centred: shrunk aspect-preserving (Pillow's
+    `thumbnail`) when it does not fit (`data.datasets.pad_white`'s
+    geometry), else `img` itself. Pillow is imported only for a shrink."""
     ih, iw = img.shape
     if ih > h or iw > w:
         from PIL import Image
-        pil = Image.fromarray((np.clip(img, 0, 1) * 255).astype(np.uint8))
+        pil = Image.fromarray((np.clip(np.asarray(img, np.float32), 0, 1)
+                               * 255).astype(np.uint8))
         pil.thumbnail((w, h))
         img = np.asarray(pil, np.float32) / 255.0
         ih, iw = img.shape
-    top = (h - ih) // 2
-    left = (w - iw) // 2
-    out = np.ones((h, w), np.float32)
-    out[top:top + ih, left:left + iw] = img
-    return out, _Geometry(top, left, ih, iw)
+    return img, _Geometry((h - ih) // 2, (w - iw) // 2, ih, iw)
 
 
 def save_png(img: np.ndarray, path: str) -> None:
@@ -103,6 +104,17 @@ class DocumentCleaner:
         self.model = UNet(init_features=unet_features)
         self.model.load_state_dict(state_dict, strict=True)
         self.model.to(self.device).eval()
+        # a batch's packed documents fill at most this rank's rows of
+        # canvases; two staging buffers, used in turn, with the event of
+        # each one's last upload (None: nothing to wait for)
+        pixels = self._local * self.doc_size[0] * self.doc_size[1]
+        self._staging = [torch.empty(pixels, dtype=torch.float32,
+                                     pin_memory=self.device.type == "cuda")
+                         for _ in range(2)]
+        self._uploaded: List[Optional[torch.cuda.Event]] = [None, None]
+        self._turn = 0
+        self._canvas = torch.empty((self._local, 1, *self.doc_size),
+                                   dtype=torch.uint8, device=self.device)
 
     @torch.no_grad()
     def _forward(self, images: torch.Tensor) -> torch.Tensor:
@@ -110,32 +122,50 @@ class DocumentCleaner:
         out = self.model(images.float() / 255.0)
         return torch.round(out * 255.0).clamp(0, 255).to(torch.uint8)
 
-    def _fit(self, img: np.ndarray) -> Tuple[np.ndarray, _Geometry]:
-        return pad_white(np.asarray(img, np.float32), *self.doc_size)
+    @torch.no_grad()
+    def _dispatch(self, docs: Sequence[np.ndarray]
+                  ) -> Tuple[torch.Tensor, List[_Geometry]]:
+        """Queue the cleaning of at most this rank's rows of documents
+        ((H, W) float [0, 1]).
 
-    def _batches(self, it: Iterable[np.ndarray]):
-        it = iter(it)
-        while chunk := list(itertools.islice(it, self.batch_size)):
-            with span("fit"):
-                fitted = [self._fit(img) for img in chunk]
-            yield [c for c, _ in fitted], [g for _, g in fitted]
-
-    def _dispatch(self, batch: List[np.ndarray], size: int | None = None
-                  ) -> torch.Tensor:
-        """Quantise the float canvases to uint8 on the host, pad the batch
-        to `size` rows (the fixed batch size) with white, and queue the
-        forward. Returns the first len(batch) cleaned documents, still on
-        the device."""
-        n = len(batch)
-        size = self.batch_size if size is None else size
-        with span("quantise"):
-            arr = np.full((size, 1, *self.doc_size), 255, np.uint8)
-            if n:
-                arr[:n] = np.round(np.stack(batch)[:, None] * 255.0).clip(
-                    0, 255).astype(np.uint8)
+        The host fits each document and packs its float32 content end to
+        end into the turn's staging buffer; the packed content goes up in
+        one copy. The two buffers take turns, and a buffer is written only
+        after its last upload has ended, since `clean_dir` packs a batch
+        while the previous one may still be uploading. The device quantises
+        the content (round half to even of x * 255, clamped to [0, 255]) and
+        writes each document into its window of a uint8 canvas filled with
+        white; rows past the documents stay white. Returns the first
+        len(docs) cleaned uint8 canvases, still on the device (the caller
+        downloads them as uint8), and each document's geometry."""
+        H, W = self.doc_size
+        k, self._turn = self._turn, 1 - self._turn
+        staging = self._staging[k]
+        with span("fit"):
+            if self._uploaded[k] is not None:
+                self._uploaded[k].synchronize()
+            host = staging.numpy()
+            geoms, at = [], [0]
+            for img in docs:
+                content, g = _fit(np.asarray(img), H, W)
+                n = g.h * g.w
+                host[at[-1]:at[-1] + n].reshape(g.h, g.w)[...] = content
+                geoms.append(g)
+                at.append(at[-1] + n)
         with span("upload"):
-            images = torch.from_numpy(arr).to(self.device)
-        return self._forward(images)[:n]
+            packed = staging[:at[-1]].to(self.device, non_blocking=True)
+            if self.device.type == "cuda":
+                self._uploaded[k] = torch.cuda.Event()
+                self._uploaded[k].record(
+                    torch.cuda.current_stream(self.device))
+        with span("quantise"):
+            levels = torch.round(packed * 255.0).clamp_(0, 255).to(
+                torch.uint8)
+            canvas = self._canvas.fill_(255)
+            for i, g in enumerate(geoms):
+                canvas[i, 0, g.top:g.top + g.h, g.left:g.left + g.w] = (
+                    levels[at[i]:at[i + 1]].view(g.h, g.w))
+        return self._forward(canvas)[:len(docs)], geoms
 
     def _my_rows(self, n: int) -> slice:
         """This rank's rows of a global batch of `n` documents."""
@@ -153,16 +183,12 @@ class DocumentCleaner:
         content regions as uint8 at processing resolution (shrunk inputs
         stay shrunk)."""
         out: List[np.ndarray] = []
+        it = iter(images)
         with span("clean"):
-            for batch, geoms in self._batches(images):
-                if self._world == 1:
-                    dev = self._dispatch(batch)
-                else:
-                    # this rank's rows, then every rank's crops in rank
-                    # order
-                    rows = self._my_rows(len(batch))
-                    batch, geoms = batch[rows], geoms[rows]
-                    dev = self._dispatch(batch, self._local)
+            while batch := list(itertools.islice(it, self.batch_size)):
+                # this rank's rows; with more than one rank, every rank's
+                # crops are gathered in rank order
+                dev, geoms = self._dispatch(batch[self._my_rows(len(batch))])
                 with span("download"):
                     cleaned = dev.cpu().numpy()
                 with span("crop"):
@@ -217,11 +243,10 @@ class DocumentCleaner:
         with ThreadPoolExecutor(max_workers=4) as pool:
             for i in range(0, len(paths), size):
                 chunk = paths[i:i + size]
-                fitted = [self._fit(load_gray(p)) for p in chunk]
-                dev = self._dispatch([c for c, _ in fitted], size)
+                dev, geoms = self._dispatch([load_gray(p) for p in chunk])
                 if pending is not None:
                     n_done += finish(pending)
-                pending = (dev, [g for _, g in fitted], chunk)
+                pending = (dev, geoms, chunk)
             if pending is not None:
                 n_done += finish(pending)
 

@@ -199,7 +199,7 @@ def test_clean_request_has_its_six_stages():
     kids = _tree(spans)
     (clean,) = kids[None]
     assert clean.name == "clean"
-    stages = ["fit", "quantise", "upload", "unet.forward", "download",
+    stages = ["fit", "upload", "quantise", "unet.forward", "download",
               "crop"]
     assert [s.name for s in kids[clean.id]] == stages * 2   # two batches
     assert all(s.root == clean.id for s in spans)
