@@ -1,7 +1,7 @@
 """Textarea-training CLI (counterpart of `qea_ocr_tpu/cli/area_cli.py`):
 flag for flag the JAX package's, which is the reference's
 `area_cli.py:10-124` plus --dataset synthetic for hermetic runs, and
-`--device`.
+`--proxy` (`crnn` or `svtr-l`, `models/proxy.py`) and `--device`.
 
 Run: python -m qea_ocr_tpu_torch.cli.area_cli --ocr Fake --dataset synthetic ...
 
@@ -22,6 +22,8 @@ from qea_ocr_tpu_torch.config import SELECTION_KEYS, WEIGHTGEN_KEYS
 
 
 def build_parser() -> argparse.ArgumentParser:
+    from qea_ocr_tpu_torch.models.proxy import PROXIES
+
     p = argparse.ArgumentParser(
         description="Trains the Prep (UNet) with text-area word crops")
     p.add_argument("--batch_size", type=int, default=64)
@@ -78,6 +80,10 @@ def build_parser() -> argparse.ArgumentParser:
                    help="CRNN BiLSTM hidden size (reference fixes 256)")
     p.add_argument("--unet_features", type=int, default=32,
                    help="UNet level-1 feature count (reference fixes 32)")
+    p.add_argument("--proxy", default="crnn", choices=PROXIES,
+                   help="the differentiable OCR proxy: crnn (the reference's "
+                        "CRNN, T=31 CTC steps) or svtr-l (SVTR-L, T=32 "
+                        "steps)")
     p.add_argument("--device", default="cuda",
                    help="torch device (cuda, cuda:N or cpu); a missing GPU "
                         "is an error, not a fallback")
@@ -113,6 +119,7 @@ def config_from_args(args):
         prep_pretrain_lr=args.prep_pretrain_lr,
         prep_ema=args.prep_ema, data_parallel=args.data_parallel,
         lstm_hidden=args.lstm_hidden, unet_features=args.unet_features,
+        proxy=args.proxy,
     )
 
 

@@ -1,7 +1,8 @@
 """Patch-training CLI (counterpart of `qea_ocr_tpu/cli/patch_cli.py`): flag
 for flag the JAX package's, which is the reference's `patch_cli.py:10-156`
 plus the batched additions (--batch_docs, --max_strips, --dataset synthetic
-for hermetic runs), and `--device`.
+for hermetic runs), and `--proxy` (`crnn` or `svtr-l`,
+`models/proxy.py`) and `--device`.
 
 Run: python -m qea_ocr_tpu_torch.cli.patch_cli --ocr Fake --dataset synthetic ...
 
@@ -30,6 +31,8 @@ from qea_ocr_tpu_torch.config import SELECTION_KEYS, WEIGHTGEN_KEYS
 
 
 def build_parser() -> argparse.ArgumentParser:
+    from qea_ocr_tpu_torch.models.proxy import PROXIES
+
     p = argparse.ArgumentParser(
         description="Trains the Prep (UNet) with the Patch dataset")
     p.add_argument("--lr_crnn", type=float, default=0.0001,
@@ -134,6 +137,10 @@ def build_parser() -> argparse.ArgumentParser:
                         "over the processes: params + optimizer moments "
                         "stored sharded over T processes, batch sharded "
                         "over the data axis")
+    p.add_argument("--proxy", default="crnn", choices=PROXIES,
+                   help="the differentiable OCR proxy: crnn (the reference's "
+                        "CRNN, T=31 CTC steps) or svtr-l (SVTR-L, T=32 "
+                        "steps)")
     p.add_argument("--device", default="cuda",
                    help="torch device (cuda, cuda:N or cpu); a missing GPU "
                         "is an error, not a fallback")
@@ -177,6 +184,7 @@ def config_from_args(args):
         async_ocr=args.async_ocr, data_parallel=args.data_parallel,
         tensor_parallel=args.tensor_parallel,
         lstm_hidden=args.lstm_hidden, unet_features=args.unet_features,
+        proxy=args.proxy,
         **({"doc_size": tuple(args.doc_size)} if args.doc_size else {}),
     )
 

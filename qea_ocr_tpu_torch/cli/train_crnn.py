@@ -1,6 +1,7 @@
 """CRNN warmup CLI (counterpart of `qea_ocr_tpu/cli/train_crnn.py`): flag
 for flag the JAX package's, which is the reference's `train_crnn.py:219-272`
-plus --dataset synthetic, and `--device`.
+plus --dataset synthetic, and `--proxy` (`crnn` or `svtr-l`,
+`models/proxy.py`: the warmup trains that proxy) and `--device`.
 
 Run: python -m qea_ocr_tpu_torch.cli.train_crnn --ocr Fake --dataset synthetic ...
 
@@ -17,6 +18,8 @@ import argparse
 
 
 def build_parser() -> argparse.ArgumentParser:
+    from qea_ocr_tpu_torch.models.proxy import PROXIES
+
     p = argparse.ArgumentParser(description="Trains the CRNN proxy model")
     p.add_argument("--batch_size", type=int, default=32)
     p.add_argument("--lr", type=float, default=0.0001)
@@ -44,6 +47,10 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--data_parallel", action="store_true",
                    help="shard the crop batch over the processes of the "
                         "process group, one GPU each")
+    p.add_argument("--proxy", default="crnn", choices=PROXIES,
+                   help="the differentiable OCR proxy: crnn (the reference's "
+                        "CRNN, T=31 CTC steps) or svtr-l (SVTR-L, T=32 "
+                        "steps)")
     p.add_argument("--device", default="cuda",
                    help="torch device (cuda, cuda:N or cpu); a missing GPU "
                         "is an error")
@@ -63,7 +70,7 @@ def config_from_args(args):
         synthetic_train_size=args.synthetic_train_size,
         synthetic_val_size=args.synthetic_val_size,
         lstm_hidden=args.lstm_hidden, data_parallel=args.data_parallel,
-        device=args.device,
+        proxy=args.proxy, device=args.device,
     )
 
 

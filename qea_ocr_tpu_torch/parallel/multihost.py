@@ -21,7 +21,9 @@ package's multi-process path on every world size:
     group (`sum_gradients`), which is the gradient of the global loss.
 
 Outside `data_group` (or with no process group at all) every function here
-is the identity, so the single-process steps are unchanged.
+is the identity, so the single-process steps are unchanged. Each
+collective that a step issues (`global_count`, `global_sum_grad`,
+`gather_rows`, `sum_gradients`) runs in a span named `collective`.
 
 The backend follows the device, explicitly: NCCL for CUDA, Gloo for the
 CPU. A CUDA run never takes Gloo, and a missing NCCL raises.
@@ -37,6 +39,8 @@ from typing import Any, Optional, Sequence, Tuple
 import numpy as np
 import torch
 import torch.distributed as dist
+
+from qea_ocr_tpu_torch.utils.metrics import span
 
 # ------------------------------------------------------------ host functions
 
@@ -300,7 +304,8 @@ def global_count(x: torch.Tensor) -> torch.Tensor:
     if group is None:
         return x
     out = x.detach().clone()
-    dist.all_reduce(out, group=group)
+    with span("collective"):
+        dist.all_reduce(out, group=group)
     return out
 
 
@@ -312,7 +317,8 @@ def global_sum_grad(x: torch.Tensor) -> torch.Tensor:
     if group is None:
         return x
     from torch.distributed.nn.functional import all_reduce
-    return all_reduce(x, group=group)
+    with span("collective"):
+        return all_reduce(x, group=group)
 
 
 def global_numel(n: int) -> int:
@@ -345,7 +351,8 @@ def gather_rows(x: torch.Tensor) -> torch.Tensor:
     if group is None or dist.get_world_size(group) == 1:
         return x
     parts = [torch.empty_like(x) for _ in range(dist.get_world_size(group))]
-    dist.all_gather(parts, x.contiguous(), group=group)
+    with span("collective"):
+        dist.all_gather(parts, x.contiguous(), group=group)
     return torch.cat(parts)
 
 
@@ -362,7 +369,8 @@ def sum_gradients(params: Sequence[torch.nn.Parameter]) -> None:
     if not grads:
         return
     flat = torch.cat([g.reshape(-1) for g in grads])
-    dist.all_reduce(flat, group=group)
+    with span("collective"):
+        dist.all_reduce(flat, group=group)
     offset = 0
     for g in grads:
         g.copy_(flat[offset:offset + g.numel()].view_as(g))

@@ -52,7 +52,7 @@ from qea_ocr_tpu_torch.data.pipeline import (
     WordBatch, batch_iterator, blank_wordbatch, collate_words,
     default_num_workers, pad_wordbatch)
 from qea_ocr_tpu_torch.models.attention import HistoryAttention
-from qea_ocr_tpu_torch.models.crnn import CRNN
+from qea_ocr_tpu_torch.models.proxy import build_proxy
 from qea_ocr_tpu_torch.models.unet import UNet
 from qea_ocr_tpu_torch.ocr.base import get_ocr_helper
 from qea_ocr_tpu_torch.ocr.engine import OcrQueryEngine
@@ -138,7 +138,8 @@ class AreaTrainerConfig:
     unet_features: int = 32
     use_wandb: bool = False
     optuna_trial: object = None
-    # the port's addition
+    # the port's additions
+    proxy: str = "crnn"    # models/proxy.py: crnn or svtr-l
     device: str = "cuda"   # torch device; a missing GPU is an error
 
 
@@ -281,8 +282,8 @@ class TrainNNPrepArea:
         self.prep_model = UNet(
             init_features=cfg.unet_features, conv_impl="xla",
             generator=torch.Generator().manual_seed(seeds[0])).to(self.device)
-        self.crnn_model = CRNN(
-            self.charmap.vocab_size, lstm_hidden=cfg.lstm_hidden,
+        self.crnn_model = build_proxy(
+            cfg.proxy, self.charmap.vocab_size, lstm_hidden=cfg.lstm_hidden,
             generator=torch.Generator().manual_seed(seeds[1])).to(self.device)
         # weight_decay 0: parity with `train_nn_area.py:149-154`
         self.prep_optimizer = adam_l2(self.prep_model.parameters(),

@@ -41,7 +41,7 @@ from qea_ocr_tpu_torch.data.datasets import ImgDataset, SyntheticWordDataset
 from qea_ocr_tpu_torch.data.pipeline import (
     WordBatch, batch_iterator, blank_wordbatch, collate_words,
     default_num_workers, pad_wordbatch)
-from qea_ocr_tpu_torch.models.crnn import CRNN
+from qea_ocr_tpu_torch.models.proxy import build_proxy
 from qea_ocr_tpu_torch.ocr.base import get_ocr_helper
 from qea_ocr_tpu_torch.ocr.engine import OcrQueryEngine
 from qea_ocr_tpu_torch.ops.ctc import ctc_loss_mean, greedy_decode
@@ -86,7 +86,8 @@ class CrnnTrainerConfig:
     data_parallel: bool = False  # shard the crop batch over the ranks of
                                  # the process group (a world of one
                                  # without a group)
-    # the port's addition
+    # the port's additions
+    proxy: str = "crnn"    # models/proxy.py: crnn or svtr-l
     device: str = "cuda"   # torch device; a missing GPU is an error
 
 
@@ -144,8 +145,8 @@ class TrainCRNN:
         self.ocr = OcrQueryEngine(backend, self.charmap) if backend else None
 
         # ----------------------------------------------------------- model
-        self.model = CRNN(
-            self.charmap.vocab_size, lstm_hidden=cfg.lstm_hidden,
+        self.model = build_proxy(
+            cfg.proxy, self.charmap.vocab_size, lstm_hidden=cfg.lstm_hidden,
             generator=torch.Generator().manual_seed(cfg.random_seed)
         ).to(self.device)
         self.optimizer = adam_l2(self.model.parameters(), cfg.lr,

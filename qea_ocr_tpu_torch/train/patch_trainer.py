@@ -72,7 +72,7 @@ from qea_ocr_tpu_torch.data.pipeline import (
     DocBatch, batch_iterator, blank_docbatch, collate_docs,
     default_num_workers, pad_docbatch)
 from qea_ocr_tpu_torch.models.attention import HistoryAttention
-from qea_ocr_tpu_torch.models.crnn import CRNN
+from qea_ocr_tpu_torch.models.proxy import build_proxy
 from qea_ocr_tpu_torch.models.unet import UNet
 from qea_ocr_tpu_torch.ocr.base import get_ocr_helper
 from qea_ocr_tpu_torch.ocr.engine import OcrQueryEngine
@@ -182,7 +182,8 @@ class PatchTrainerConfig:
     unet_features: int = 32
     use_wandb: bool = False
     optuna_trial: object = None
-    # the port's addition
+    # the port's additions
+    proxy: str = "crnn"    # models/proxy.py: crnn or svtr-l
     device: str = "cuda"   # torch device; a missing GPU is an error
 
 
@@ -236,8 +237,8 @@ class TrainNNPrep:
         self.prep_model = UNet(
             init_features=cfg.unet_features, conv_impl="xla",
             generator=torch.Generator().manual_seed(seeds[0])).to(self.device)
-        self.crnn_model = CRNN(
-            self.charmap.vocab_size, lstm_hidden=cfg.lstm_hidden,
+        self.crnn_model = build_proxy(
+            cfg.proxy, self.charmap.vocab_size, lstm_hidden=cfg.lstm_hidden,
             generator=torch.Generator().manual_seed(seeds[1])).to(self.device)
         tp = cfg.tensor_parallel
         self.prep_optimizer = adam_l2(self.prep_model.parameters(),

@@ -140,14 +140,15 @@ class _Recorder:
         self.done.extend(reversed(stack[i:]))
         del stack[i:]
 
-    def open_mark(self, name: str) -> None:
+    def open_mark(self, name: str, nested: bool = False) -> None:
         """A model's backward begins: the previous model's backward, if
         still open, ends here, and this one ends where autograd leaves the
-        model or with the backward pass."""
+        model or with the backward pass. A `nested` mark (a part of a
+        model) opens inside the open one and closes nothing."""
         if not on():
             return
         for t in reversed(self.stack):
-            if t.mark:
+            if t.mark and not nested:
                 self.close(t)
                 break
         s = self.open(name, mark=True)
@@ -196,13 +197,16 @@ def span(name: str):
     return _SpanContext(name)
 
 
-def backward_from(t: torch.Tensor, name: str) -> torch.Tensor:
+def backward_from(t: torch.Tensor, name: str,
+                  nested: bool = False) -> torch.Tensor:
     """Mark a model's output: where autograd reaches it, the span `name`
     (the model's backward) opens. A hook on the tensor, registered only
     while spans record and `t` takes a gradient: the graph is the same
-    either way, and the hook passes the gradient on untouched."""
+    either way, and the hook passes the gradient on untouched. `nested`
+    marks the output of a part of a model, whose backward span opens
+    inside the model's (its input's `backward_to` closes it)."""
     if t.requires_grad and on():
-        t.register_hook(lambda g: _RECORDER.open_mark(name))
+        t.register_hook(lambda g: _RECORDER.open_mark(name, nested))
     return t
 
 

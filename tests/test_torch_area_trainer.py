@@ -199,7 +199,7 @@ def test_one_epoch_beside_the_jax_trainer(tmp_path):
 
     cfg = tiny_cfg(tmp_path / "t", epochs=1, minibatch_subset=None)
     kw = {f.name: getattr(cfg, f.name) for f in dataclasses.fields(cfg)
-          if f.name != "device"}
+          if f.name not in ("device", "proxy")}
     kw["exp_base_path"] = str(tmp_path / "j")
     jtrainer = jat.TrainNNPrepArea(jat.AreaTrainerConfig(**kw))
     trainer = TrainNNPrepArea(cfg)

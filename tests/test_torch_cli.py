@@ -1,6 +1,6 @@
 """The port's training CLIs (`qea_ocr_tpu_torch/cli/patch_cli.py`,
 `cli/area_cli.py`): their flags are the JAX CLIs', flag for flag, plus
-`--device`; and `main` runs the trainer end to end on the synthetic world
+`--proxy` and `--device`; and `main` runs the trainer end to end on the synthetic world
 (the arguments of the JAX package's `tests/test_cli.py`)."""
 
 import dataclasses
@@ -56,6 +56,7 @@ def test_flags_equal_the_jax_cli(cli):
     j, t = parser_flags(jmod.build_parser()), parser_flags(
         tmod.build_parser())
     assert t.pop("device")["default"] == "cuda"
+    assert t.pop("proxy")["default"] == "crnn"
     assert list(t) == list(j)                  # the same flags, in order
     for dest in j:
         assert t[dest] == j[dest], dest
@@ -67,6 +68,7 @@ def test_config_fields_equal_the_jax_config(cli):
     j = {f.name: f.default for f in dataclasses.fields(jcfg)}
     t = {f.name: f.default for f in dataclasses.fields(tcfg)}
     assert t.pop("device") == "cuda"
+    assert t.pop("proxy") == "crnn"
     assert t == j
 
 

@@ -47,6 +47,7 @@ from qea_ocr_tpu.train import crnn_trainer as jtrainer
 from qea_ocr_tpu_torch.cli import train_crnn as tcli
 from qea_ocr_tpu_torch.data.pipeline import collate_words, pad_wordbatch
 from qea_ocr_tpu_torch.models.crnn import CRNN
+from qea_ocr_tpu_torch.models.proxy import build_proxy
 from qea_ocr_tpu_torch.tools.convert import crnn_state_dict
 from qea_ocr_tpu_torch.train import crnn_trainer as ttrainer
 from qea_ocr_tpu_torch.utils.io import OPTIM_SUFFIX, load_checkpoint
@@ -84,7 +85,6 @@ def _np(t):
 @pytest.fixture(scope="module")
 def world(tmp_path_factory):
     tmp = tmp_path_factory.mktemp("crnn_parity")
-    f32 = partial(CRNN, compute_dtype=torch.float32)
     port_init = CRNN(95, lstm_hidden=HIDDEN,
                      generator=torch.Generator().manual_seed(SEED))
     jmodel = JCRNN(vocab_size=95, lstm_hidden=HIDDEN,
@@ -97,7 +97,8 @@ def world(tmp_path_factory):
                    partial(JCRNN, compute_dtype=jnp.float32))
         mp.setattr(JCRNN, "init", lambda self, *a, **k: cv)
         jt = jtrainer.TrainCRNN(_cfg(jtrainer.CrnnTrainerConfig))
-        mp.setattr(ttrainer, "CRNN", f32)
+        mp.setattr(ttrainer, "build_proxy",
+                   partial(build_proxy, compute_dtype=torch.float32))
         # the port loads the same weights from a state_dict file
         pt = ttrainer.TrainCRNN(_cfg(ttrainer.CrnnTrainerConfig,
                                      device="cpu", ckpt_path=ckpt))
@@ -207,6 +208,7 @@ def test_cli_flags_and_config_equal_the_jax_ones():
     j, t = parser_flags(jcli.build_parser()), parser_flags(
         tcli.build_parser())
     assert t.pop("device")["default"] == "cuda"
+    assert t.pop("proxy")["default"] == "crnn"
     assert list(t) == list(j)
     for dest in j:
         assert t[dest] == j[dest], dest
@@ -215,6 +217,7 @@ def test_cli_flags_and_config_equal_the_jax_ones():
     tf = {f.name: f.default
           for f in dataclasses.fields(ttrainer.CrnnTrainerConfig)}
     assert tf.pop("device") == "cuda"
+    assert tf.pop("proxy") == "crnn"
     assert tf == jf
     cfg = tcli.config_from_args(tcli.build_parser().parse_args(
         ["--device", "cpu", "--dataset", "synthetic", "--random_std",

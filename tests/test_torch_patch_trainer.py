@@ -440,7 +440,8 @@ def test_one_epoch_beside_the_jax_trainer(tmp_path):
 
     common = dict(epochs=1, minibatch_subset=None, async_ocr=False)
     kw = {k: v for k, v in dataclasses_asdict(
-        tiny_cfg(tmp_path / "t", **common)).items() if k != "device"}
+        tiny_cfg(tmp_path / "t", **common)).items()
+          if k not in ("device", "proxy")}
     kw["exp_base_path"] = str(tmp_path / "j")
     jtrainer = jpt.TrainNNPrep(jpt.PatchTrainerConfig(**kw))
     prep_sd = unet_state_dict(jax_variables(jtrainer.prep_state))
