@@ -91,36 +91,10 @@ def build_parser() -> argparse.ArgumentParser:
 
 
 def config_from_args(args):
+    from qea_ocr_tpu_torch.cli import config_from_args as fill
     from qea_ocr_tpu_torch.train.area_trainer import AreaTrainerConfig
 
-    return AreaTrainerConfig(
-        device=args.device, batch_size=args.batch_size, lr_crnn=args.lr_crnn,
-        lr_prep=args.lr_prep, scalar=args.scalar, epochs=args.epoch,
-        random_seed=args.random_seed, std=args.std,
-        inner_limit=args.inner_limit, inner_limit_skip=args.inner_limit_skip,
-        crnn_model=args.crnn_model, prep_model=args.prep_model,
-        exp_base_path=args.exp_base_path, ocr=args.ocr, dataset=args.dataset,
-        random_std=args.random_std, minibatch_subset=args.minibatch_subset,
-        minibatch_subset_prop=args.minibatch_subset_prop,
-        start_epoch=args.start_epoch, data_base_path=args.data_base_path,
-        warmup_epochs=args.warmup_epochs,
-        train_subset_size=args.train_subset_size,
-        val_subset_size=args.val_subset_size,
-        cers_ocr_path=args.cers_ocr_path, update_CRNN=args.update_CRNN,
-        window_size=args.window_size, query_dim=args.query_dim,
-        emb_dim=args.emb_dim, attn_activation=args.attn_activation,
-        weightgen_method=args.weightgen_method,
-        decay_factor=args.decay_factor, discount_factor=args.discount_factor,
-        lr_scheduler=args.lr_scheduler,
-        lr_scheduler_prep=args.lr_scheduler_prep,
-        synthetic_train_size=args.synthetic_train_size,
-        synthetic_val_size=args.synthetic_val_size, use_wandb=args.use_wandb,
-        prep_pretrain_epochs=args.prep_pretrain_epochs,
-        prep_pretrain_lr=args.prep_pretrain_lr,
-        prep_ema=args.prep_ema, data_parallel=args.data_parallel,
-        lstm_hidden=args.lstm_hidden, unet_features=args.unet_features,
-        proxy=args.proxy,
-    )
+    return fill(AreaTrainerConfig, args)
 
 
 def main(argv=None):

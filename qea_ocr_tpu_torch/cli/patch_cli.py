@@ -24,7 +24,6 @@ from __future__ import annotations
 
 import argparse
 import datetime
-import json
 import os
 
 from qea_ocr_tpu_torch.config import SELECTION_KEYS, WEIGHTGEN_KEYS
@@ -148,45 +147,10 @@ def build_parser() -> argparse.ArgumentParser:
 
 
 def config_from_args(args):
+    from qea_ocr_tpu_torch.cli import config_from_args as fill
     from qea_ocr_tpu_torch.train.patch_trainer import PatchTrainerConfig
 
-    return PatchTrainerConfig(
-        device=args.device,
-        lr_crnn=args.lr_crnn, lr_prep=args.lr_prep, scalar=args.scalar,
-        epochs=args.epoch, random_seed=args.random_seed, std=args.std,
-        inner_limit=args.inner_limit, inner_limit_skip=args.inner_limit_skip,
-        crnn_model=args.crnn_model, prep_model=args.prep_model,
-        exp_base_path=args.exp_base_path, ocr=args.ocr,
-        random_std=args.random_std, minibatch_subset=args.minibatch_subset,
-        minibatch_subset_prop=args.minibatch_subset_prop,
-        start_epoch=args.start_epoch, data_base_path=args.data_base_path,
-        warmup_epochs=args.warmup_epochs, exp_name=args.exp_name,
-        train_subset_size=args.train_subset_size,
-        val_subset_size=args.val_subset_size, weight_decay=args.weight_decay,
-        cers_ocr_path=args.cers_ocr_path, image_prop=args.image_prop,
-        discount_factor=args.discount_factor, update_CRNN=args.update_CRNN,
-        window_size=args.window_size, query_dim=args.query_dim,
-        emb_dim=args.emb_dim, attn_activation=args.attn_activation,
-        weightgen_method=args.weightgen_method, decay_factor=args.decay_factor,
-        pruning_artifact=args.pruning_artifact,
-        optim_crnn_path=args.optim_crnn_path,
-        optim_prep_path=args.optim_prep_path,
-        tracked_labels_path=args.tracked_labels_path,
-        profile_dir=args.profile_dir,
-        prep_pretrain_epochs=args.prep_pretrain_epochs,
-        prep_ema=args.prep_ema,
-        batch_docs=args.batch_docs, micro_steps=args.micro_steps,
-        micro_refresh=args.micro_refresh,
-        max_strips=args.max_strips, dataset=args.dataset,
-        synthetic_train_docs=args.synthetic_train_docs,
-        synthetic_val_docs=args.synthetic_val_docs, use_wandb=args.use_wandb,
-        synthetic_strips_per_doc=args.synthetic_strips_per_doc,
-        async_ocr=args.async_ocr, data_parallel=args.data_parallel,
-        tensor_parallel=args.tensor_parallel,
-        lstm_hidden=args.lstm_hidden, unet_features=args.unet_features,
-        proxy=args.proxy,
-        **({"doc_size": tuple(args.doc_size)} if args.doc_size else {}),
-    )
+    return fill(PatchTrainerConfig, args)
 
 
 def main(argv=None):

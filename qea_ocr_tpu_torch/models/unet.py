@@ -97,21 +97,20 @@ def batch_norm(bn: nn.BatchNorm2d, x: torch.Tensor) -> torch.Tensor:
     var = torch.ones_like(bn.running_var)
     out = F.batch_norm(xf, mean, var, bn.weight, bn.bias, training=True,
                        momentum=1.0, eps=bn.eps)
+    # the unbiased variance times (n-1)/n is the biased one
     n = xf.numel() // xf.shape[1]
-    with torch.no_grad():
-        bn.running_mean.mul_(1 - bn.momentum).add_(mean, alpha=bn.momentum)
-        bn.running_var.mul_(1 - bn.momentum).add_(
-            var, alpha=bn.momentum * (n - 1) / n)
-        bn.num_batches_tracked += 1
+    _move_running(bn, mean, var, bn.momentum * (n - 1) / n)
     return out.to(x.dtype)
 
 
-def _move_running(bn: nn.BatchNorm2d, mean: torch.Tensor,
-                  var: torch.Tensor) -> None:
-    """flax's running-statistics rule with the biased batch variance."""
+def _move_running(bn: nn.BatchNorm2d, mean: torch.Tensor, var: torch.Tensor,
+                  var_weight: float) -> None:
+    """flax's running-statistics rule, `new = (1 - momentum) * old +
+    momentum * batch`, with the biased batch variance: `var_weight` is the
+    weight of `var` as given (`momentum` for the biased variance)."""
     with torch.no_grad():
         bn.running_mean.mul_(1 - bn.momentum).add_(mean, alpha=bn.momentum)
-        bn.running_var.mul_(1 - bn.momentum).add_(var, alpha=bn.momentum)
+        bn.running_var.mul_(1 - bn.momentum).add_(var, alpha=var_weight)
         bn.num_batches_tracked += 1
 
 
@@ -128,7 +127,7 @@ def global_batch_norm(bn: nn.BatchNorm2d, xf: torch.Tensor) -> torch.Tensor:
     shape = (1, -1) + (1,) * (xf.dim() - 2)
     dev = xf - mean.reshape(shape)
     var = global_sum_grad((dev * dev).sum(dim=dims)) / n
-    _move_running(bn, mean.detach(), var.detach())
+    _move_running(bn, mean.detach(), var.detach(), bn.momentum)
     return (dev * torch.rsqrt(var + bn.eps).reshape(shape)
             * bn.weight.reshape(shape) + bn.bias.reshape(shape))
 
@@ -190,7 +189,7 @@ def flat_batch_norm(bn: nn.BatchNorm2d, xf: torch.Tensor | None, height: int,
         n = global_numel(xf.shape[0] * height * width)
         mean = global_sum_grad(xs.sum(dim=(0, 2))) / n
         var = global_sum_grad((xs * xs).sum(dim=(0, 2))) / n - mean * mean
-        _move_running(bn, mean.detach(), var.detach())
+        _move_running(bn, mean.detach(), var.detach(), bn.momentum)
     else:
         mean, var = bn.running_mean, bn.running_var
     mul = bn.weight * torch.rsqrt(var + bn.eps)

@@ -30,7 +30,7 @@ from __future__ import annotations
 import dataclasses
 import os
 from functools import partial
-from typing import Iterable, Optional
+from typing import Optional
 
 import numpy as np
 import torch
@@ -51,7 +51,8 @@ from qea_ocr_tpu_torch.parallel.mesh import make_mesh, put_replicated
 from qea_ocr_tpu_torch.parallel.multihost import (
     data_group, global_count, pinned_subset, process_shard, process_sum,
     rank_device, reported, sum_gradients)
-from qea_ocr_tpu_torch.train.state import adam_l2, set_learning_rate, step_lr
+from qea_ocr_tpu_torch.train.state import (
+    adam_l2, scrub_nonfinite, set_learning_rate, step_lr)
 from qea_ocr_tpu_torch.utils.charmap import CharMap
 from qea_ocr_tpu_torch.utils.device import resolve_device
 from qea_ocr_tpu_torch.utils.io import load_checkpoint, save_checkpoint
@@ -89,15 +90,6 @@ class CrnnTrainerConfig:
     # the port's additions
     proxy: str = "crnn"    # models/proxy.py: crnn or svtr-l
     device: str = "cuda"   # torch device; a missing GPU is an error
-
-
-@torch.no_grad()
-def scrub_nonfinite(params: Iterable[torch.nn.Parameter]) -> None:
-    """Zero every non-finite entry of each parameter's `.grad`, in place
-    (parity with the reference's NaN hook)."""
-    for p in params:
-        if p.grad is not None:
-            torch.nan_to_num_(p.grad, nan=0.0, posinf=0.0, neginf=0.0)
 
 
 class TrainCRNN:

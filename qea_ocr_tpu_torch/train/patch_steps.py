@@ -55,7 +55,7 @@ from qea_ocr_tpu_torch.parallel.multihost import (
     sum_gradients)
 from qea_ocr_tpu_torch.parallel.tp import is_sharded, unsharded
 from qea_ocr_tpu_torch.tracking.loss import weighted_ctc_loss
-from qea_ocr_tpu_torch.train.crnn_trainer import scrub_nonfinite
+from qea_ocr_tpu_torch.train.state import scrub_nonfinite
 from qea_ocr_tpu_torch.utils.metrics import span
 
 

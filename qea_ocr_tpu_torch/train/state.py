@@ -1,5 +1,5 @@
-"""Optimizers and learning-rate schedules (counterpart of
-`qea_ocr_tpu/train/state.py`).
+"""Optimizers, their gradient scrub and learning-rate schedules
+(counterpart of `qea_ocr_tpu/train/state.py`).
 
 The reference uses `torch.optim.Adam(weight_decay=...)`: classic coupled L2
 (gradient += wd * param, then Adam), not AdamW. The JAX package rebuilt
@@ -58,6 +58,15 @@ def step_lr(base_lr: float, epoch: int, step_size: int = 10,
 def cosine_lr(base_lr: float, epoch: int, t_max: int) -> float:
     """torch CosineAnnealingLR parity (eta_min=0)."""
     return base_lr * (1 + math.cos(math.pi * epoch / t_max)) / 2
+
+
+@torch.no_grad()
+def scrub_nonfinite(params: Iterable[torch.nn.Parameter]) -> None:
+    """Zero every non-finite entry of each parameter's `.grad`, in place
+    (parity with the reference's NaN hook)."""
+    for p in params:
+        if p.grad is not None:
+            torch.nan_to_num_(p.grad, nan=0.0, posinf=0.0, neginf=0.0)
 
 
 @torch.no_grad()

@@ -64,10 +64,11 @@ def resolve_side_shard(path: str, process_index: int) -> str:
 
     Multi-process trainers shard label-history/selection/CER side-state per
     host with a ``.pN`` suffix before the extension (``tracked_labels.p1.json``
-    — `PatchTrainer._save_side_jsons`). Resume accepts the unsuffixed name on
-    every worker and prefers the worker's own shard when one exists, so a pod
-    restart uses one flag value across hosts. Falls back to ``path`` verbatim
-    (single-process runs, or a shard recorded for a different topology).
+    — `train.budget.BudgetTrainer._save_side_jsons`). Resume accepts the
+    unsuffixed name on every worker and prefers the worker's own shard when
+    one exists, so a pod restart uses one flag value across hosts. Falls back
+    to ``path`` verbatim (single-process runs, or a shard recorded for a
+    different topology).
     """
     base, ext = os.path.splitext(path)
     shard = f"{base}.p{process_index}{ext}"

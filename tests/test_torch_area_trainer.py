@@ -25,8 +25,6 @@ from qea_ocr_tpu_torch.train.area_trainer import (
     AreaTrainerConfig, TrainNNPrepArea)
 from qea_ocr_tpu_torch.utils.io import OPTIM_SUFFIX, load_checkpoint
 
-from _torch_parity import RecordingTrial, trial_pruned_type
-
 CORRUPTION = dict(noise_std=0.08, shading=0.1, salt_pepper=0.0)
 TRAIN, VAL, B = 16, 10, 8
 # the JAX trainer's record (`qea_ocr_tpu/train/area_trainer.py:561-576`)
@@ -164,18 +162,6 @@ def test_eval_area_roundtrip(area_run):
     assert set(out) == {"test_accuracy", "test_cer"}
     assert 0.0 <= out["test_accuracy"] <= 1.0
     assert out["test_cer"] >= 0.0
-
-
-def test_optuna_trial_reports_and_prunes(tmp_path):
-    """Each epoch's validation accuracy (in %) goes to the trial; a trial
-    that asks to prune after epoch 0 ends the run there."""
-    trial = RecordingTrial(prune_after=0)
-    trainer = TrainNNPrepArea(tiny_cfg(tmp_path, optuna_trial=trial))
-    with pytest.raises(trial_pruned_type()):
-        trainer.train()
-    recs = _records(tmp_path)
-    assert len(recs) == 1
-    assert trial.reports == [(recs[0]["Fake_accuracy"] * 100, 0)]
 
 
 def test_unknown_ocr_and_missing_gpu_raise(tmp_path, monkeypatch):

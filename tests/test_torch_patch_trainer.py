@@ -20,8 +20,6 @@ from qea_ocr_tpu_torch.train.patch_trainer import (
     PatchTrainerConfig, TrainNNPrep)
 from qea_ocr_tpu_torch.utils.io import OPTIM_SUFFIX, load_checkpoint
 
-from _torch_parity import RecordingTrial, trial_pruned_type
-
 DOCS, VAL_DOCS, STRIPS = 4, 2, 3
 
 
@@ -196,16 +194,6 @@ def test_samplewise_weight_generators(tmp_path, method, extra):
     assert np.isfinite(_records(tmp_path)[0]["CRNN_loss"])
 
 
-def test_zero_selection_batch_with_samplewise_weights(tmp_path):
-    """prop 0.95 -> one strip of 12 is selected globally, so a batch has no
-    selected strip: the step still runs, its tracking loss fully masked."""
-    trainer = TrainNNPrep(tiny_cfg(
-        tmp_path, epochs=1, minibatch_subset="randomglobal",
-        minibatch_subset_prop=0.95, weightgen_method="levenshtein"))
-    trainer.train()
-    assert trainer.ocr.total_calls == 2 + VAL_CALLS
-
-
 def test_warmup_phase_b_only_and_validation_tail(tmp_path):
     # a warm-up epoch queries every valid strip; inner_limit 0 trains the
     # UNet alone; 3 validation documents leave a tail batch of one
@@ -353,18 +341,6 @@ def test_pruning_artifact_selects_the_training_documents(tmp_path):
     np.testing.assert_array_equal(trainer.train_indices, [1, 3])
     assert trainer.train_set_size == 2
     np.testing.assert_array_equal(trainer._local_train_indices, [1, 3])
-
-
-def test_optuna_trial_reports_and_prunes(tmp_path):
-    """Each epoch's validation accuracy (in %) goes to the trial; a trial
-    that asks to prune after epoch 0 ends the run there."""
-    trial = RecordingTrial(prune_after=0)
-    trainer = TrainNNPrep(tiny_cfg(tmp_path, optuna_trial=trial))
-    with pytest.raises(trial_pruned_type()):
-        trainer.train()
-    recs = _records(tmp_path)
-    assert len(recs) == 1
-    assert trial.reports == [(recs[0]["Fake_accuracy"] * 100, 0)]
 
 
 def test_parallel_flags_without_a_process_group(tmp_path):

@@ -442,7 +442,7 @@ def test_schedules_and_learning_rate():
 
 
 def test_scrub_nonfinite_zeroes_only_bad_entries():
-    from qea_ocr_tpu_torch.train.crnn_trainer import scrub_nonfinite
+    from qea_ocr_tpu_torch.train.state import scrub_nonfinite
 
     a = torch.nn.Parameter(torch.zeros(4))
     b = torch.nn.Parameter(torch.zeros(2))
