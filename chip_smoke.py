@@ -76,7 +76,13 @@ Phases; any failure raises, so the exit code is non-zero:
                  layer's forward and backward a call and its device busy
                  time (torch.profiler) against the plain loop's; one launch
                  of each kernel a layer, and (4, 2) for a CRNN forward and
-                 backward and a no-grad forward at B=64.
+                 backward and a no-grad forward at B=64. The UNet's batch
+                 norm + ReLU kernels at D=96's level 1 (96x400x512, C=32),
+                 its bottleneck and a crop batch's level 1, train and eval,
+                 forward and backward, against the plain steps on the same
+                 card tensors; their device time against the bytes bound
+                 (8 passes of the bfloat16 activation in train mode, 2 in
+                 eval) and the chain they replace (`library_ms`).
   4. slice     - inference at full width: UNet(32) and CRNN(hidden 256, V=95)
                  with seeded random weights in the bfloat16 policy:
                  `make_steps(...).val_forward` on 3 batches of 8 synthetic
@@ -266,6 +272,15 @@ KERNEL_REL_TOL = 1e-5      # CTC kernels vs plain, relative with a floor of 1
 # more than twice the plain loop's own in bfloat16, or 2e-2 (the tests'
 # bound, tests/test_torch_lstm.py)
 LSTM_T, LSTM_C, LSTM_ROWS, LSTM_REL_FLOOR = 31, 512, (64, 128, 256, 1536), 2e-2
+# the UNet's batch norm + ReLU kernels: D=96's level 1 (96 documents of
+# 400x512, f=32), its bottleneck (16f at 1/16 of the side) and a batch of
+# word crops' level 1 (64 crops of 32x128). bfloat16 outputs within a unit in
+# the last place of the plain steps' (dx: of twice its largest entry's); the
+# float32 sums and statistics within float32 rounding of sums over up to
+# 19.7 million rows
+BN_SHAPES = (("level1", (96, 32, 400, 512)), ("bottleneck", (96, 512, 25, 32)),
+             ("crop", (64, 32, 32, 128)))
+BN_BF16_RTOL, BN_F32_RTOL = 2.0 ** -7, 1e-4
 GATHER_BWD_ATOL = 1e-6     # gather backward vs autograd through the plain one
 ODD_TILES = ((17, 66), (32, 130))  # gather forward tile sizes beside 32x128
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
@@ -299,26 +314,48 @@ TRAIN_PARAM_LRS = 2.05
 LSTM_LAYERS = 2
 LSTM_STEP = {"lstm_fwd": 2 * LSTM_LAYERS, "lstm_bwd": 2 * LSTM_LAYERS}
 LSTM_VAL = {"lstm_fwd": LSTM_LAYERS, "lstm_bwd": 0}
-# expected kernel launches: one prep_extract + phase_ab, the micro-stepped
-# phase_ab (2 chunks, refresh) with its prep_extract
+# the UNet's batch norm + ReLU kernels (`ops/bn_relu.py`) on the library
+# route, 18 norms a forward: a train-mode norm launches 3 forward kernels
+# (statistics, finalise, apply) and 3 backward (sums, their merge, dx),
+# inside a data group one forward more (the rank's moments merged before
+# the group's sums); an eval-mode norm 2 (finalise, apply). The
+# channel-major route launches none
+UNET_NORMS = 18
+
+
+def bn_launches(train: int = 0, evals: int = 0, group: bool = False) -> dict:
+    """The norm kernels' launches of `train` library-route train-mode UNet
+    forwards, each with its backward, and `evals` eval-mode ones."""
+    return {"bn_fwd": UNET_NORMS * ((4 if group else 3) * train + 2 * evals),
+            "bn_bwd": UNET_NORMS * 3 * train}
+
+
+# expected kernel launches: one prep_extract (an eval forward) + phase_ab
+# (phase B's train forward and backward), the micro-stepped phase_ab (2
+# chunks, refresh: one more eval forward a chunk) with its prep_extract, and
+# a prep_pretrain_step (a train forward and backward)
 LAUNCHES_PER_STEP = {"gather_fwd": 2, "gather_bwd": 1, "ctc_fwd": 3,
-                     "ctc_bwd": 3, "conv": 0, **LSTM_STEP}
+                     "ctc_bwd": 3, "conv": 0, **LSTM_STEP,
+                     **bn_launches(train=1, evals=1)}
 LAUNCHES_MICRO = {"gather_fwd": 5, "gather_bwd": 2, "ctc_fwd": 6,
                   "ctc_bwd": 6, "conv": 0,
-                  **{k: 2 * v for k, v in LSTM_STEP.items()}}
+                  **{k: 2 * v for k, v in LSTM_STEP.items()},
+                  **bn_launches(train=2, evals=3)}
+LAUNCHES_PRETRAIN = bn_launches(train=1)
 # the trainer phase: 16 training and 8 validation documents in batches of 8,
 # 2 epochs. A trainer step is one prep_extract through the twin (8 conv
-# launches, one gather) and one phase_ab through the grad model (no conv
-# launch; history CTC, one jitter CTC and phase B's CTC, forward and
-# backward; two CRNN calls); a validation batch is one val_forward through
-# the twin.
+# launches, one gather, no norm kernel) and one phase_ab through the grad
+# model (no conv launch; history CTC, one jitter CTC and phase B's CTC,
+# forward and backward; two CRNN calls; one library-route train forward
+# and backward); a validation batch is one val_forward through the twin.
 TRAINER_EPOCHS, TRAINER_STEPS, TRAINER_VAL_BATCHES = 2, 2, 1
 CONVS_PER_FORWARD = 8
 LAUNCHES_TRAINER_STEP = {"gather_fwd": 2, "gather_bwd": 1, "ctc_fwd": 3,
                          "ctc_bwd": 3, "conv": CONVS_PER_FORWARD,
-                         **LSTM_STEP}
+                         **LSTM_STEP, **bn_launches(train=1)}
 LAUNCHES_VAL_BATCH = {"gather_fwd": 1, "gather_bwd": 0, "ctc_fwd": 1,
-                      "ctc_bwd": 0, "conv": CONVS_PER_FORWARD, **LSTM_VAL}
+                      "ctc_bwd": 0, "conv": CONVS_PER_FORWARD, **LSTM_VAL,
+                      **bn_launches()}
 TWIN_DOC_ATOL = 2e-3       # twin vs vanilla eval forward, bf16, sigmoid output
 # the area phase: 256 training and 72 validation crops in batches of 64 (the
 # tail batch of 8 padded and masked), history window 3, 2 epochs
@@ -1012,6 +1049,148 @@ def check_lstm(torch, dev, card):
     return fwd, bwd
 
 
+def _bn_inputs(torch, dev, shape, seed):
+    """y and dz in bfloat16, channels-last (as the library route's convs
+    give them), and a batch norm with drawn weight, bias and statistics."""
+    from torch import nn
+
+    g = torch.Generator(device=dev).manual_seed(seed)
+    y = (torch.randn(shape, generator=g, device=dev) * 2 + 0.5).to(
+        torch.bfloat16).contiguous(memory_format=torch.channels_last)
+    dz = torch.randn(shape, generator=g, device=dev).to(
+        torch.bfloat16).contiguous(memory_format=torch.channels_last)
+    bn = nn.BatchNorm2d(shape[1], eps=1e-5, momentum=0.1).to(dev)
+    with torch.no_grad():
+        for t, lo, hi in ((bn.weight, 0.5, 1.5), (bn.bias, -0.5, 0.5),
+                          (bn.running_mean, -1, 1), (bn.running_var, 0.5, 2)):
+            t.uniform_(lo, hi, generator=g)
+    return y, dz, bn
+
+
+def _bn_close(got, want, rtol) -> float:
+    """|got - want| over want's largest |entry|, which must be <= rtol."""
+    got, want = got.detach().float(), want.detach().float()
+    err = float((got - want).abs().max() / want.abs().max().clamp_min(1e-12))
+    if not err <= rtol:
+        raise AssertionError(f"batch norm + ReLU: relative error {err:.3g} "
+                             f"above {rtol:.3g}")
+    return err
+
+
+def check_bn_relu(torch, dev, card):
+    """The UNet's batch norm + ReLU kernels (`ops/bn_relu.py` on CUDA)
+    against the plain steps run on the same card tensors, at `BN_SHAPES`,
+    in train mode (forward and backward: z, dx, the weight and bias
+    gradients, the running statistics) and eval mode (forward: z and the
+    running statistics left as they were; a backward refused). One forward
+    is three launches in train mode and two in eval, a train backward
+    three. Then each mode's work behind a spin (the
+    train pair: statistics, apply, sums and dx, 8 passes of the bfloat16
+    activation; eval: the apply, 2 passes) against its bytes bound, and the
+    chain the library route ran (`batch_norm` on NCHW, float32, then
+    `F.relu`) as `library_ms`. Returns a record for each (shape, mode)."""
+    import copy
+
+    import torch.nn.functional as F
+
+    from qea_ocr_tpu_torch.models.unet import batch_norm
+    from qea_ocr_tpu_torch.ops import bn_relu as op
+    from qea_ocr_tpu_torch.ops.cuda import bn_relu_cuda as kern
+    from qea_ocr_tpu_torch.parallel.multihost import (
+        global_numel, global_sum_grad)
+
+    helpers = (global_sum_grad, global_numel)
+    records = {}
+    for label, shape in BN_SHAPES:
+        rows = shape[0] * shape[2] * shape[3]
+        passes_bytes = rows * shape[1] * 2
+        for train in (True, False):
+            y, dz, bn = _bn_inputs(torch, dev, shape, 90 + shape[1])
+            bn.train(train)
+            kb, pb = copy.deepcopy(bn), copy.deepcopy(bn)
+            counts = (kern.launches, kern.bwd_launches)
+            yi = y.detach().requires_grad_()
+            z = op.bn_relu(yi, kb, *helpers)
+            if train:
+                z.backward(dz)
+            else:
+                try:
+                    z.sum().backward()
+                except RuntimeError:
+                    pass
+                else:
+                    raise AssertionError("an eval-mode norm took a backward")
+            torch.cuda.synchronize()
+            launches = (kern.launches - counts[0],
+                        kern.bwd_launches - counts[1])
+            if launches != ((3, 3) if train else (2, 0)):
+                raise AssertionError(f"batch norm + ReLU at {label}, train "
+                                     f"{train}: launches {launches}")
+            plain = op._PLAIN
+            stat = op._statistics(plain, y, pb, pb.weight, pb.bias, *helpers)
+            errs = dict(
+                z=_bn_close(z, plain.apply(y, stat), BN_BF16_RTOL),
+                running_mean=_bn_close(kb.running_mean, pb.running_mean,
+                                       BN_F32_RTOL),
+                running_var=_bn_close(kb.running_var, pb.running_var,
+                                      BN_F32_RTOL))
+            if train:
+                sums = plain.grad_sums(dz, y, stat)
+                errs.update(
+                    dx=_bn_close(yi.grad, plain.grad_input(
+                        dz, y, stat, sums, rows), 2 * BN_BF16_RTOL),
+                    dweight=_bn_close(kb.weight.grad, sums[1], BN_F32_RTOL),
+                    dbias=_bn_close(kb.bias.grad, sums[0], BN_F32_RTOL))
+                del sums
+            if int(kb.num_batches_tracked) != int(pb.num_batches_tracked):
+                raise AssertionError("num_batches_tracked differs")
+            del z, yi, stat
+
+            # the kernels' work behind a spin
+            tb = copy.deepcopy(bn)
+            n = rows
+
+            def kernels():
+                st = op._statistics(kern, y, tb, tb.weight, tb.bias,
+                                    *helpers)
+                kern.apply(y, st)
+                if train:
+                    kern.grad_input(dz, y, st, kern.grad_sums(dz, y, st), n)
+            iters = 5 if rows * shape[1] > 1e8 else 20
+            ms = device_ms(torch, kernels, iters=iters)
+            # the library route's chain on NCHW tensors
+            lb = copy.deepcopy(bn)
+            yl, dzl = y.contiguous(), dz.contiguous()
+
+            def library():
+                if train:
+                    yj = yl.detach().requires_grad_()
+                    F.relu(batch_norm(lb, yj)).backward(dzl)
+                else:
+                    with torch.no_grad():
+                        F.relu(batch_norm(lb, yl))
+            library_ms = device_ms(torch, library, iters=iters)
+            del yl, dzl
+            bound_ms = 1e3 * (8 if train else 2) * passes_bytes \
+                / HBM_BYTES_PER_S
+            mode = "train" if train else "eval"
+            records[f"{label}.{mode}"] = dict(
+                shape=list(shape), mode=mode, ms=ms, bound_ms=bound_ms,
+                share=bound_ms / ms, library_ms=library_ms,
+                launches=launches, rel_err=errs)
+            work = "statistics, apply, sums, dx" if train else "apply"
+            log(f"[kernels] bn_relu {label} {tuple(shape)} bf16 {mode}: "
+                f"{ms:.4f} ms on the device ({work}), bound "
+                f"{bound_ms:.4f} ms by bytes ({100 * bound_ms / ms:.1f}%); "
+                f"the library chain "
+                f"{library_ms:.4f} ms; launches forward / backward "
+                f"{launches}; worst error {max(errs.values()):.3g} (median, "
+                f"{card})")
+            del y, dz
+            torch.cuda.empty_cache()
+    return records
+
+
 def check_ctc_long(torch, dev) -> float:
     """The forward without alpha at the longest labels it takes, L = 511
     (2L+1 = 1023 <= 1024), and T = 200, B = 4, V = 20: a band of 416
@@ -1364,7 +1543,7 @@ def check_build() -> dict:
     from qea_ocr_tpu_torch.ops.cuda import build
 
     nvcc = build.find_nvcc()
-    sources = ("conv_cmajor", "ctc", "gather", "lstm")
+    sources = ("conv_cmajor", "ctc", "gather", "lstm", "bn_relu")
     with ThreadPoolExecutor(max_workers=len(sources)) as pool:
         reports = dict(zip(sources, pool.map(ptxas_info, sources)))
     sass = subprocess.run(
@@ -1423,7 +1602,15 @@ def check_build() -> dict:
     log("[build] lstm.cu: " + ", ".join(
         f"{k['kernel']} {k['dtype']} {k['registers']} registers, "
         f"{k['spill_bytes']} bytes spilled" for k in lstm))
-    return dict(conv=dict(sass=ops, ptxas=ptxas), lstm=lstm, **small)
+    bn = [dict(kernel=k["name"], registers=k["registers"],
+               smem_bytes=k["smem_bytes"], spill_bytes=k["spill_bytes"])
+          for k in reports["bn_relu"]]
+    log("[build] bn_relu.cu: " + ", ".join(
+        f"{k['kernel']} {k['registers']} registers, {k['smem_bytes']} bytes "
+        f"of static shared memory, {k['spill_bytes']} bytes spilled"
+        for k in bn))
+    return dict(conv=dict(sass=ops, ptxas=ptxas), lstm=lstm, bn_relu=bn,
+                **small)
 
 
 def check_conv(torch, dev, card):
@@ -1686,10 +1873,11 @@ def run_slice(torch, dev, card):
 
     counts = _counts()
     log(f"[slice] kernel launches in this phase: {json.dumps(counts)}")
-    if min(counts["gather_fwd"], counts["ctc_fwd"], counts["lstm_fwd"]) < 1:
+    if min(counts["gather_fwd"], counts["ctc_fwd"], counts["lstm_fwd"],
+           counts["bn_fwd"]) < 1:
         raise AssertionError(f"a kernel of the path never launched: {counts}")
     if counts["gather_bwd"] or counts["ctc_bwd"] or counts["lstm_bwd"] \
-            or counts["conv"]:
+            or counts["bn_bwd"] or counts["conv"]:
         raise AssertionError(f"inference launched a backward kernel, or the "
                              f"library-route UNet the conv kernel: {counts}")
     return counts, unet, crnn, cm, world.samples[:2]
@@ -1748,24 +1936,27 @@ def check_reference(torch, dev, unet, crnn, cm, samples):
 def _counts() -> dict:
     """Kernel launches since the last `_reset_counts`, by kernel."""
     from qea_ocr_tpu_torch.ops.cuda import (
-        conv_cmajor_cuda, ctc_cuda, gather_cuda, lstm_cuda)
+        bn_relu_cuda, conv_cmajor_cuda, ctc_cuda, gather_cuda, lstm_cuda)
 
     return {"gather_fwd": gather_cuda.launches,
             "gather_bwd": gather_cuda.bwd_launches,
             "ctc_fwd": ctc_cuda.launches, "ctc_bwd": ctc_cuda.bwd_launches,
             "conv": conv_cmajor_cuda.launches,
             "lstm_fwd": lstm_cuda.launches,
-            "lstm_bwd": lstm_cuda.bwd_launches}
+            "lstm_bwd": lstm_cuda.bwd_launches,
+            "bn_fwd": bn_relu_cuda.launches,
+            "bn_bwd": bn_relu_cuda.bwd_launches}
 
 
 def _reset_counts() -> None:
     from qea_ocr_tpu_torch.ops.cuda import (
-        conv_cmajor_cuda, ctc_cuda, gather_cuda, lstm_cuda)
+        bn_relu_cuda, conv_cmajor_cuda, ctc_cuda, gather_cuda, lstm_cuda)
 
     gather_cuda.launches = gather_cuda.bwd_launches = 0
     ctc_cuda.launches = ctc_cuda.bwd_launches = 0
     conv_cmajor_cuda.launches = 0
     lstm_cuda.launches = lstm_cuda.bwd_launches = 0
+    bn_relu_cuda.launches = bn_relu_cuda.bwd_launches = 0
 
 
 def _full_width(torch, cm, dev, dtype):
@@ -1886,7 +2077,13 @@ def run_train(torch, dev, card, cm):
     log(f"[train] phase_ab micro_steps=2 micro_refresh: loss_a "
         f"{float(out[4]):.4f}, loss_b {float(out[1]['loss']):.4f}; "
         f"{ms:.2f} ms (host clock, synchronised; {card})")
+    before = _counts()
     loss, ms = timed(lambda: steps.prep_pretrain_step(b["images"]))
+    after = _counts()
+    pre_counts = {k: after[k] - before[k] for k in after}
+    if pre_counts != {k: LAUNCHES_PRETRAIN.get(k, 0) for k in after}:
+        raise AssertionError(f"launches in prep_pretrain_step: "
+                             f"{pre_counts}, expected {LAUNCHES_PRETRAIN}")
     if not torch.isfinite(loss):
         raise AssertionError("prep_pretrain_step: non-finite loss")
     log(f"[train] prep_pretrain_step: loss {float(loss):.4f}; {ms:.2f} ms "
@@ -1894,7 +2091,8 @@ def run_train(torch, dev, card, cm):
 
     counts = _counts()
     log(f"[train] kernel launches in this phase: {json.dumps(counts)}")
-    want = {k: 4 * LAUNCHES_PER_STEP[k] + LAUNCHES_MICRO[k] for k in counts}
+    want = {k: 4 * LAUNCHES_PER_STEP[k] + LAUNCHES_MICRO[k]
+            + LAUNCHES_PRETRAIN.get(k, 0) for k in counts}
     if counts != want:
         raise AssertionError(f"launches in the train phase {counts}, "
                              f"expected {want}")
@@ -1981,13 +2179,14 @@ def conv_impl_cmajor():
 
 def trainer_launches(steps: int = TRAINER_STEPS,
                      val_batches: int = TRAINER_VAL_BATCHES,
-                     runs: int = TRAINER_EPOCHS) -> dict:
+                     runs: int = TRAINER_EPOCHS, group: bool = False) -> dict:
     """The kernel launches of `runs` epochs (or trials) of `steps` trainer
     steps and `val_batches` validation batches; by default one run of the
-    trainer phase's configuration."""
-    return {k: runs * (steps * LAUNCHES_TRAINER_STEP[k]
-                       + val_batches * LAUNCHES_VAL_BATCH[k])
-            for k in LAUNCHES_TRAINER_STEP}
+    trainer phase's configuration. With `group` the steps run in a data
+    group (the norms' train forwards one launch more)."""
+    step = {**LAUNCHES_TRAINER_STEP, **bn_launches(train=1, group=group)}
+    return {k: runs * (steps * step[k] + val_batches * LAUNCHES_VAL_BATCH[k])
+            for k in step}
 
 
 def run_trainer(torch, dev, card, exp):
@@ -2418,6 +2617,12 @@ def run_area(torch, dev, card, exp, crnn_ckpt):
     for k in LSTM_STEP:
         want[k] = AREA_EPOCHS * (steps * LSTM_STEP[k]
                                  + val_batches * LSTM_VAL[k])
+    # the norms: one pretraining epoch of `steps` train steps, then a step
+    # is an eval forward (prep_forward) and phase B's train forward and
+    # backward, a validation batch an eval forward
+    want.update(bn_launches(
+        train=steps + AREA_EPOCHS * steps,
+        evals=AREA_EPOCHS * (steps + val_batches)))
     log(f"[area] kernel launches in this phase: {json.dumps(counts)}")
     if counts != want:
         raise AssertionError(f"launches in the area phase {counts}, "
@@ -2655,9 +2860,10 @@ def run_parallel(torch, dev, card, work, single, area_run):
                                            "--tensor_parallel", "1"))
             torch.cuda.synchronize()
         tp_counts = {k: v - counts_before[k] for k, v in _counts().items()}
-        if tp_counts != trainer_launches():
+        # the steps run in the data axis's group (of one)
+        if tp_counts != trainer_launches(group=True):
             raise AssertionError(f"tensor-parallel launches {tp_counts}, "
-                                 f"expected {trainer_launches()}")
+                                 f"expected {trainer_launches(group=True)}")
         if not all(isinstance(p, DTensor)
                    for p in tp.crnn_model.lstm.parameters()):
             raise AssertionError("the tensor-parallel CRNN's LSTM is not "
@@ -2779,46 +2985,19 @@ def _free_port() -> int:
     return port
 
 
-_EXPORT_LOADER = """
-import sys, time
-import numpy as np
-import torch
-try:
-    import qea_ocr_tpu_torch
-except ImportError:
-    pass
-else:
-    sys.exit("the port is importable here")
-t0 = time.perf_counter()
-torch.zeros(1, device="cuda")
-cuda_s = time.perf_counter() - t0
-t0 = time.perf_counter()
-clean = torch.export.load(sys.argv[1]).module()
-load_s = time.perf_counter() - t0
-x = torch.from_numpy(np.load(sys.argv[2])).cuda()
-times = []
-with torch.no_grad():
-    for _ in range(6):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        y = clean(x)
-        torch.cuda.synchronize()
-        times.append(1e3 * (time.perf_counter() - t0))
-np.save(sys.argv[3], y.cpu().numpy())
-print(cuda_s, load_s, float(np.median(times[1:])))
-"""
-
-
-# a cmajor artifact's loader: the repository root on sys.path and only the
-# operator's registration module imported, nothing of the models, trainers
-# or serving
-_CMAJOR_LOADER = """
-import sys, time
+# an artifact's loader: the repository root on sys.path and only the module
+# that registers the artifact's operator imported (`ops/bn_relu.py` for one
+# of the library route exported on the card, `ops/conv_cmajor.py` for a
+# channel-major one), nothing of the models, trainers or serving. Prints
+# the set-up and load seconds, a forward's ms and the conv and norm
+# kernels' launches in one forward
+_OP_LOADER = """
+import importlib, sys, time
 import numpy as np
 import torch
 sys.path.insert(0, sys.argv[1])
-import qea_ocr_tpu_torch.ops.conv_cmajor
-from qea_ocr_tpu_torch.ops.cuda import conv_cmajor_cuda
+importlib.import_module(sys.argv[2])
+from qea_ocr_tpu_torch.ops.cuda import bn_relu_cuda, conv_cmajor_cuda
 
 
 def check_modules():
@@ -2833,15 +3012,17 @@ t0 = time.perf_counter()
 torch.zeros(1, device="cuda")
 cuda_s = time.perf_counter() - t0
 t0 = time.perf_counter()
-clean = torch.export.load(sys.argv[2]).module()
+clean = torch.export.load(sys.argv[3]).module()
 load_s = time.perf_counter() - t0
-x = torch.from_numpy(np.load(sys.argv[3])).cuda()
+x = torch.from_numpy(np.load(sys.argv[4])).cuda()
 times = []
 with torch.no_grad():
     conv_cmajor_cuda.launches = 0
+    bn_relu_cuda.launches = bn_relu_cuda.bwd_launches = 0
     y = clean(x)
     torch.cuda.synchronize()
-    launches = conv_cmajor_cuda.launches
+    launches = (conv_cmajor_cuda.launches, bn_relu_cuda.launches,
+                bn_relu_cuda.bwd_launches)
     for _ in range(6):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -2849,19 +3030,22 @@ with torch.no_grad():
         torch.cuda.synchronize()
         times.append(1e3 * (time.perf_counter() - t0))
 check_modules()
-np.save(sys.argv[4], y.float().cpu().numpy())
-print(cuda_s, load_s, float(np.median(times[1:])), launches)
+np.save(sys.argv[5], y.float().cpu().numpy())
+print(cuda_s, load_s, float(np.median(times[1:])), *launches)
 """
 
 
 def run_export(torch, dev, card, work, prep_ckpt):
     """The trainer phase's last UNet checkpoint through
     `tools/export_model.py` on the card, on the library route and on the
-    channel-major one. The library artifact is loaded and run by a Python
-    process that cannot import the port, against the eager eval forward;
-    the channel-major one by a process that imports only the conv
-    operator's module, against the eager twin. Returns the phase's readings
-    and the loader's conv launches for one forward."""
+    channel-major one. The library artifact holds the norm operator (18
+    nodes) and is loaded and run by a Python process that imports only
+    that operator's module, against the eager eval forward; the
+    channel-major one holds the conv operator (8 nodes) and is loaded by a
+    process that imports only the conv operator's module, against the
+    eager twin. Each loader's forward must launch its operator's kernels
+    and no other's. Returns the phase's readings and the loader's conv
+    launches for one forward."""
     from qea_ocr_tpu_torch.data import PatchDocuments, collate_docs
     from qea_ocr_tpu_torch.models.unet import UNet
     from qea_ocr_tpu_torch.tools import export_model
@@ -2891,20 +3075,19 @@ def run_export(torch, dev, card, work, prep_ckpt):
             export_s = time.perf_counter() - t0
         if _counts() != {k: 0 for k in _counts()}:
             raise AssertionError(f"the {route} export launched {_counts()}")
-        want_nodes = CONVS_PER_FORWARD if route == "cmajor" else 0
-        if info["conv_impl"] != route \
-                or info["conv_flat_nodes"] != want_nodes:
+        cmajor = route == "cmajor"
+        want_nodes = (CONVS_PER_FORWARD if cmajor else 0,
+                      0 if cmajor else UNET_NORMS)
+        if info["conv_impl"] != route or (
+                info["conv_flat_nodes"], info["bn_relu_nodes"]) != want_nodes:
             raise AssertionError(f"the {route} export: {info}")
-        if route == "xla":
-            # -I: neither PYTHONPATH nor the current directory on sys.path,
-            # and the process runs outside the checkout
-            cmd = [sys.executable, "-I", "-c", _EXPORT_LOADER, out, "x.npy",
-                   "y.npy"]
-            model = eager
-        else:
-            cmd = [sys.executable, "-I", "-c", _CMAJOR_LOADER, root, out,
-                   "x.npy", "y.npy"]
-            model = twin
+        # -I: neither PYTHONPATH nor the current directory on sys.path, and
+        # the process runs outside the checkout
+        module = "qea_ocr_tpu_torch.ops." + ("conv_cmajor" if cmajor
+                                             else "bn_relu")
+        cmd = [sys.executable, "-I", "-c", _OP_LOADER, root, module, out,
+               "x.npy", "y.npy"]
+        model = twin if cmajor else eager
         proc = subprocess.run(cmd, cwd=work, capture_output=True, text=True,
                               timeout=300)
         if proc.returncode != 0:
@@ -2912,6 +3095,14 @@ def run_export(torch, dev, card, work, prep_ckpt):
                                  f"{proc.stdout}{proc.stderr}")
         vals = proc.stdout.split()
         cuda_s, load_s, artifact_ms = map(float, vals[:3])
+        loader_launches = dict(zip(("conv", "bn_fwd", "bn_bwd"),
+                                   map(int, vals[3:6])))
+        want_launches = {"conv": CONVS_PER_FORWARD if cmajor else 0,
+                         **bn_launches(evals=0 if cmajor else 1)}
+        if loader_launches != want_launches:
+            raise AssertionError(f"the {route} artifact's forward launched "
+                                 f"{loader_launches}, expected "
+                                 f"{want_launches}")
         got = np.load(os.path.join(work, "y.npy"))
         _reset_counts()
         with torch.no_grad():
@@ -2929,9 +3120,10 @@ def run_export(torch, dev, card, work, prep_ckpt):
         r = dict(bytes=info["bytes"], export_s=export_s, cuda_s=cuda_s,
                  load_s=load_s, artifact_ms=artifact_ms, eager_ms=eager_ms,
                  max_abs=float(diff.max()), mean_abs=float(diff.mean()),
-                 nodes=info["conv_flat_nodes"])
+                 nodes=info["conv_flat_nodes"] + info["bn_relu_nodes"],
+                 loader_launches=loader_launches)
         if route == "cmajor":
-            r["loader_conv_launches"] = int(vals[3])
+            r["loader_conv_launches"] = loader_launches["conv"]
             r["fused"] = info["cmajor_fused"]
             if r["loader_conv_launches"] != CONVS_PER_FORWARD \
                     or forward_launches != CONVS_PER_FORWARD:
@@ -2942,8 +3134,7 @@ def run_export(torch, dev, card, work, prep_ckpt):
         readings[route] = r
         log(f"[export] {route}: {json.dumps(info)}: export {export_s:.2f} "
             f"s; in a process "
-            + ("without the port" if route == "xla" else
-               "that imports only qea_ocr_tpu_torch.ops.conv_cmajor")
+            + f"that imports only {module}"
             + f", CUDA set-up {cuda_s:.2f} s, then the artifact's load "
             f"{load_s:.2f} s; artifact vs eager "
             f"{'eval forward' if route == 'xla' else 'twin forward'} (D={D}, "
@@ -2995,7 +3186,8 @@ def run_quality_area(torch, dev, card, work, crnn_ckpt):
     batch, validation, then `EvalPrep` with the originals. Launches: per
     step 3 CTC forwards with alpha and 3 backwards and two CRNN calls with
     a gradient, 1 CTC forward and one CRNN call for the validation batch,
-    nothing else (the evaluation's OCR reads the crops on the host). Checks
+    the norm kernels of every UNet forward (`bn_launches`), nothing else
+    (the evaluation's OCR reads the crops on the host). Checks
     the summary's keys, its ledger and its ranges. Returns
     the launch counts and the summary."""
     from qea_ocr_tpu_torch.tools import quality_run_area
@@ -3010,9 +3202,13 @@ def run_quality_area(torch, dev, card, work, crnn_ckpt):
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
     steps = int(env["TRAIN_SIZE"]) // 64
+    # the norms: one pretraining epoch of `steps` train steps, the area
+    # epoch's steps (an eval and a train forward each), the validation
+    # batch and the evaluation's batch (an eval forward each)
     counts = _expect("quality_run_area.main", dict(
         ctc_fwd=3 * steps + 1, ctc_bwd=3 * steps,
-        **{k: steps * LSTM_STEP[k] + LSTM_VAL[k] for k in LSTM_STEP}),
+        **{k: steps * LSTM_STEP[k] + LSTM_VAL[k] for k in LSTM_STEP},
+        **bn_launches(train=2 * steps, evals=steps + 2)),
         tag="quality_area")
     # rangeCER at 0.75: ceil(64 x 0.25) = 16 crops a step, queried clean
     # and jittered; validation reads every crop
@@ -3044,7 +3240,7 @@ _COUNTING_PYTHON = """
 import atexit, json, runpy, sys
 sys.path.insert(0, {root!r})
 from qea_ocr_tpu_torch.ops.cuda import (
-    conv_cmajor_cuda, ctc_cuda, gather_cuda, lstm_cuda)
+    bn_relu_cuda, conv_cmajor_cuda, ctc_cuda, gather_cuda, lstm_cuda)
 
 def dump():
     with open({out!r}, "w") as f:
@@ -3054,7 +3250,9 @@ def dump():
                    "ctc_bwd": ctc_cuda.bwd_launches,
                    "conv": conv_cmajor_cuda.launches,
                    "lstm_fwd": lstm_cuda.launches,
-                   "lstm_bwd": lstm_cuda.bwd_launches}}, f)
+                   "lstm_bwd": lstm_cuda.bwd_launches,
+                   "bn_fwd": bn_relu_cuda.launches,
+                   "bn_bwd": bn_relu_cuda.bwd_launches}}, f)
 atexit.register(dump)
 assert sys.argv[1] == "-m", sys.argv
 sys.argv = sys.argv[2:]
@@ -3071,7 +3269,9 @@ def run_launcher(torch, dev, card, work, crnn_ckpt):
     mode, the trainer's world). The `python` it finds first on PATH runs
     the module as Python would and writes the kernels' launch counts at
     exit: 3 CTC forwards and 3 backwards and two CRNN calls with a gradient
-    a step, 1 CTC forward and one CRNN call for validation, nothing else.
+    a step, 1 CTC forward and one CRNN call for validation, the norm
+    kernels of an eval and a train forward a step and an eval forward for
+    validation, nothing else.
     Returns the counts and the readings."""
     from qea_ocr_tpu_torch.tools import cer_seed
 
@@ -3117,7 +3317,8 @@ def run_launcher(torch, dev, card, work, crnn_ckpt):
     steps = LAUNCHER_TRAIN // 64
     want = {k: 0 for k in counts}
     want.update(ctc_fwd=3 * steps + 1, ctc_bwd=3 * steps,
-                **{k: steps * LSTM_STEP[k] + LSTM_VAL[k] for k in LSTM_STEP})
+                **{k: steps * LSTM_STEP[k] + LSTM_VAL[k] for k in LSTM_STEP},
+                **bn_launches(train=steps, evals=steps + 1))
     log(f"[launcher] kernel launches in run_area_training.sh: "
         f"{json.dumps(counts)}")
     if counts != want:
@@ -3430,6 +3631,7 @@ def main() -> None:
     lstm_fwd, lstm_bwd = check_lstm(torch, dev, card)
     for record, kernel in ((lstm_fwd, "fwd"), (lstm_bwd, "bwd")):
         record["ptxas"] = [k for k in ptxas["lstm"] if k["kernel"] == kernel]
+    bn_relu = check_bn_relu(torch, dev, card)
 
     infer_counts, unet, crnn, cm, samples = run_slice(torch, dev, card)
     check_reference(torch, dev, unet, crnn, cm, samples)
@@ -3471,9 +3673,11 @@ def main() -> None:
     pallas = "qea_ocr_tpu/ops/pallas/"
     # `launches`: the count of the main path that runs the kernel at its
     # shapes above, each read from a run that began with the counts at 0: the
-    # training-step phase for the gather, CTC and LSTM kernels, the trainer
-    # phase for the conv (the only path through it). The LSTM pair replaces
-    # no Pallas kernel: the JAX package scans the recurrence in `lax.scan`
+    # training-step phase for the gather, CTC, LSTM and norm kernels, the
+    # trainer phase for the conv (the only path through it). The LSTM pair
+    # replaces no Pallas kernel: the JAX package scans the recurrence in
+    # `lax.scan`; nor does the norm pair: it leaves batch norm to XLA. The
+    # norm rows hold `check_bn_relu`'s readings of each shape and mode
     kernels = [
         {"name": name, "route": "cuda", "source": csrc + source,
          "replaces": replaces and pallas + replaces,
@@ -3501,7 +3705,11 @@ def main() -> None:
             ("conv", "conv_cmajor", "conv_cmajor.cu", "conv_cmajor.py:95",
              conv),
             ("lstm_fwd", "lstm_fwd", "lstm.cu", None, lstm_fwd),
-            ("lstm_bwd", "lstm_bwd", "lstm.cu", None, lstm_bwd))]
+            ("lstm_bwd", "lstm_bwd", "lstm.cu", None, lstm_bwd),
+            ("bn_fwd", "bn_relu_fwd", "bn_relu.cu", None,
+             dict(rows=bn_relu, ptxas=ptxas["bn_relu"])),
+            ("bn_bwd", "bn_relu_bwd", "bn_relu.cu", None,
+             dict(rows=bn_relu, ptxas=ptxas["bn_relu"])))]
     for k in kernels:
         if k["launches"] < 1:
             raise AssertionError(f"{k['name']} never launched on its path")

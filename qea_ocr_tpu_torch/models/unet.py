@@ -10,14 +10,19 @@ Parameter names follow the reference schema (`encoder1.enc1conv1.weight`,
 
 Dtype policy, as in JAX: parameters are float32; convolutions run in
 `compute_dtype` (bfloat16 by default) by casting input and weights
-explicitly; batch norm is applied in float32 to the conv output (running
-statistics in eval mode; batch statistics in train mode, see `batch_norm`)
-and its result cast back to `compute_dtype`; the output sigmoid is float32.
+explicitly; batch norm computes in float32 against float32 statistics
+(running statistics in eval mode; batch statistics in train mode) and its
+result is in `compute_dtype`; the output sigmoid is float32.
 
 Two compute layouts over one set of parameters, chosen by `conv_impl`:
 
 * `"xla"` (the JAX package's name for the library route, kept so that flags
-  and tests carry over): every conv goes to cuDNN through `F.conv2d`;
+  and tests carry over): every conv goes to cuDNN through `F.conv2d`, with
+  activations and weights channels-last (NHWC, the layout cuDNN's bfloat16
+  kernels take without transposing) from the input to the output; each
+  block's batch norm + ReLU is one operation, `ops/bn_relu.py` (on CUDA a
+  hand-written kernel pair that reads the conv output as it is), inside a
+  `unet.norm` span (its backward in a nested `unet.norm.backward` mark);
 * `"cmajor"`: the shallow levels (enc1, enc2, dec2, dec1) stay in the
   padded-flat channel-major layout `(B, C, (H+2)*W)` and run their 3x3 convs
   through the hand-written kernel of `ops/conv_cmajor.py`
@@ -53,6 +58,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from qea_ocr_tpu_torch.ops.bn_relu import bn_relu, move_running
 from qea_ocr_tpu_torch.ops.conv_cmajor import (
     conv_flat, conv_flat_bn_relu, pad_flat, unflat)
 from qea_ocr_tpu_torch.ops.cuda.conv_cmajor_cuda import grid_fits
@@ -99,19 +105,8 @@ def batch_norm(bn: nn.BatchNorm2d, x: torch.Tensor) -> torch.Tensor:
                        momentum=1.0, eps=bn.eps)
     # the unbiased variance times (n-1)/n is the biased one
     n = xf.numel() // xf.shape[1]
-    _move_running(bn, mean, var, bn.momentum * (n - 1) / n)
+    move_running(bn, mean, var, bn.momentum * (n - 1) / n)
     return out.to(x.dtype)
-
-
-def _move_running(bn: nn.BatchNorm2d, mean: torch.Tensor, var: torch.Tensor,
-                  var_weight: float) -> None:
-    """flax's running-statistics rule, `new = (1 - momentum) * old +
-    momentum * batch`, with the biased batch variance: `var_weight` is the
-    weight of `var` as given (`momentum` for the biased variance)."""
-    with torch.no_grad():
-        bn.running_mean.mul_(1 - bn.momentum).add_(mean, alpha=bn.momentum)
-        bn.running_var.mul_(1 - bn.momentum).add_(var, alpha=var_weight)
-        bn.num_batches_tracked += 1
 
 
 def global_batch_norm(bn: nn.BatchNorm2d, xf: torch.Tensor) -> torch.Tensor:
@@ -127,24 +122,44 @@ def global_batch_norm(bn: nn.BatchNorm2d, xf: torch.Tensor) -> torch.Tensor:
     shape = (1, -1) + (1,) * (xf.dim() - 2)
     dev = xf - mean.reshape(shape)
     var = global_sum_grad((dev * dev).sum(dim=dims)) / n
-    _move_running(bn, mean.detach(), var.detach(), bn.momentum)
+    move_running(bn, mean.detach(), var.detach(), bn.momentum)
     return (dev * torch.rsqrt(var + bn.eps).reshape(shape)
             * bn.weight.reshape(shape) + bn.bias.reshape(shape))
 
 
 def conv(layer: nn.Conv2d | nn.ConvTranspose2d, x: torch.Tensor,
-         dtype: torch.dtype) -> torch.Tensor:
-    """`layer` evaluated in `dtype` (input, weight and bias cast)."""
-    w = layer.weight.to(dtype)
+         dtype: torch.dtype,
+         memory_format: torch.memory_format = torch.preserve_format
+         ) -> torch.Tensor:
+    """`layer` evaluated in `dtype` (input, weight and bias cast; the weight
+    into `memory_format`)."""
+    w = layer.weight.to(dtype, memory_format=memory_format)
     b = None if layer.bias is None else layer.bias.to(dtype)
     if isinstance(layer, nn.ConvTranspose2d):
         return F.conv_transpose2d(x.to(dtype), w, b, stride=layer.stride)
     return F.conv2d(x.to(dtype), w, b, padding=layer.padding)
 
 
+def block_norm(bn: nn.BatchNorm2d, y: torch.Tensor) -> torch.Tensor:
+    """relu(bn(y)) on the library route: `ops/bn_relu.py` in a `unet.norm`
+    span, its backward in a `unet.norm.backward` mark nested in the
+    UNet's. Inside a data group its statistics are the group's through
+    `global_sum_grad` and `global_numel`, as every batch norm here takes
+    them."""
+    with span("unet.norm"):
+        y = backward_to(y, "unet.norm.backward")
+        return backward_from(
+            bn_relu(y, bn, global_sum_grad, global_numel),
+            "unet.norm.backward", nested=True)
+
+
 class UNetBlock(nn.Module):
     """(conv3x3 -> BN -> ReLU) x 2, with the reference's prefixed names
-    (`{prefix}conv1`, `{prefix}norm1`, `{prefix}conv2`, `{prefix}norm2`)."""
+    (`{prefix}conv1`, `{prefix}norm1`, `{prefix}conv2`, `{prefix}norm2`).
+
+    With `nhwc` (the library route) the weights are cast channels-last and
+    each batch norm + ReLU is `block_norm`; without it (the channel-major
+    route's deep levels) `batch_norm` then `F.relu`."""
 
     def __init__(self, in_channels: int, features: int, prefix: str):
         super().__init__()
@@ -155,10 +170,15 @@ class UNetBlock(nn.Module):
             self.add_module(f"{prefix}norm{j}", nn.BatchNorm2d(
                 features, eps=1e-5, momentum=0.1))
 
-    def forward(self, x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, dtype: torch.dtype,
+                nhwc: bool = False) -> torch.Tensor:
         for j in (1, 2):
-            x = conv(getattr(self, f"{self.prefix}conv{j}"), x, dtype)
-            x = F.relu(batch_norm(getattr(self, f"{self.prefix}norm{j}"), x))
+            layer = getattr(self, f"{self.prefix}conv{j}")
+            bn = getattr(self, f"{self.prefix}norm{j}")
+            if nhwc:
+                x = block_norm(bn, conv(layer, x, dtype, torch.channels_last))
+            else:
+                x = F.relu(batch_norm(bn, conv(layer, x, dtype)))
         return x
 
 
@@ -189,7 +209,7 @@ def flat_batch_norm(bn: nn.BatchNorm2d, xf: torch.Tensor | None, height: int,
         n = global_numel(xf.shape[0] * height * width)
         mean = global_sum_grad(xs.sum(dim=(0, 2))) / n
         var = global_sum_grad((xs * xs).sum(dim=(0, 2))) / n - mean * mean
-        _move_running(bn, mean.detach(), var.detach(), bn.momentum)
+        move_running(bn, mean.detach(), var.detach(), bn.momentum)
     else:
         mean, var = bn.running_mean, bn.running_var
     mul = bn.weight * torch.rsqrt(var + bn.eps)
@@ -334,30 +354,37 @@ class UNet(nn.Module):
                 out = self._forward_cmajor(x)
             else:
                 dt = self.compute_dtype
-                enc1 = self.encoder1(x.to(dt), dt)
-                enc2 = self.encoder2(F.max_pool2d(enc1, 2), dt)
+                # channels-last from here to the output (with one input
+                # channel, the same memory as NCHW)
+                x = x.to(dt, memory_format=torch.channels_last)
+                enc1 = self.encoder1(x, dt, nhwc=True)
+                enc2 = self.encoder2(F.max_pool2d(enc1, 2), dt, nhwc=True)
                 out = self._deep_and_decode(enc1, enc2)
             return backward_from(out, "unet.backward")
 
-    def _deep_levels(self, pool2: torch.Tensor) -> torch.Tensor:
-        """enc3 .. dec3 (always through the library) on pooled enc2."""
+    def _deep_levels(self, pool2: torch.Tensor,
+                     nhwc: bool = False) -> torch.Tensor:
+        """enc3 .. dec3 (always through the library) on pooled enc2; `nhwc`
+        on the library route (`UNetBlock`)."""
         dt = self.compute_dtype
-        enc3 = self.encoder3(pool2, dt)
-        enc4 = self.encoder4(F.max_pool2d(enc3, 2), dt)
-        bottleneck = self.bottleneck(F.max_pool2d(enc4, 2), dt)
+        fmt = torch.channels_last if nhwc else torch.preserve_format
+        enc3 = self.encoder3(pool2, dt, nhwc)
+        enc4 = self.encoder4(F.max_pool2d(enc3, 2), dt, nhwc)
+        bottleneck = self.bottleneck(F.max_pool2d(enc4, 2), dt, nhwc)
         dec4 = self.decoder4(torch.cat(
-            [conv(self.upconv4, bottleneck, dt), enc4], 1), dt)
+            [conv(self.upconv4, bottleneck, dt, fmt), enc4], 1), dt, nhwc)
         return self.decoder3(torch.cat(
-            [conv(self.upconv3, dec4, dt), enc3], 1), dt)
+            [conv(self.upconv3, dec4, dt, fmt), enc3], 1), dt, nhwc)
 
     def _deep_and_decode(self, enc1, enc2) -> torch.Tensor:
-        dt = self.compute_dtype
-        dec3 = self._deep_levels(F.max_pool2d(enc2, 2))
+        """The library route below level 2, channels-last."""
+        dt, cl = self.compute_dtype, torch.channels_last
+        dec3 = self._deep_levels(F.max_pool2d(enc2, 2), nhwc=True)
         dec2 = self.decoder2(torch.cat(
-            [conv(self.upconv2, dec3, dt), enc2], 1), dt)
+            [conv(self.upconv2, dec3, dt, cl), enc2], 1), dt, nhwc=True)
         dec1 = self.decoder1(torch.cat(
-            [conv(self.upconv1, dec2, dt), enc1], 1), dt)
-        return torch.sigmoid(conv(self.conv, dec1, dt).float())
+            [conv(self.upconv1, dec2, dt, cl), enc1], 1), dt, nhwc=True)
+        return torch.sigmoid(conv(self.conv, dec1, dt, cl).float())
 
     def _forward_cmajor(self, x: torch.Tensor) -> torch.Tensor:
         """The channel-major route: levels 1 and 2 padded-flat through the

@@ -24,7 +24,7 @@ from pathlib import Path
 PACKAGE_DIR = Path(__file__).resolve().parents[2]
 CSRC_DIR = PACKAGE_DIR / "csrc"
 BUILD_DIR = PACKAGE_DIR / "_build"
-KERNELS = ("gather", "ctc", "conv_cmajor", "lstm")
+KERNELS = ("gather", "ctc", "conv_cmajor", "lstm", "bn_relu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")
 

@@ -6,14 +6,20 @@ traced by `torch.export.export` for one fixed input shape (batch_size, 1, H,
 W) with the weights inside, and written by `torch.export.save`.
 
 The UNet is built with `conv_impl="auto"`, as the JAX tool builds it. On the
-library route the artifact holds ATen operations only: any process with a
-matching PyTorch loads and runs it without this package. With
-`QEA_CONV_IMPL=cmajor` the shallow levels take the channel-major route, and
-the artifact holds one `torch.ops.qea_ocr.conv_flat` node a conv (8 for the
-four padded-flat blocks; `QEA_CMAJOR_FUSED`, read while tracing, says
-whether each folds its batch norm and ReLU): a process loads it only after
-it has registered that operator, which needs this package's
-`ops/conv_cmajor.py` and its CUDA kernel source, and nothing else of it.
+library route an artifact exported on the CPU holds ATen operations only:
+any process with a matching PyTorch loads and runs it without this package.
+Exported on CUDA, it holds one `torch.ops.qea_ocr.bn_relu_eval` node a batch
+norm + ReLU (18), so that it runs the hand-written kernels of
+`ops/bn_relu.py`: a process loads it only after it has registered that
+operator (`import qea_ocr_tpu_torch.ops.bn_relu`, which needs this package's
+ops and parallel modules and the kernel's CUDA source, not its models,
+trainers or serving). With `QEA_CONV_IMPL=cmajor` the shallow levels take
+the channel-major route, and the artifact holds one
+`torch.ops.qea_ocr.conv_flat` node a conv (8 for the four padded-flat
+blocks; `QEA_CMAJOR_FUSED`, read while tracing, says whether each folds its
+batch norm and ReLU): a process loads it only after it has registered that
+operator, which needs this package's `ops/conv_cmajor.py` and its CUDA
+kernel source, and nothing else of it.
 
 Run: python -m qea_ocr_tpu_torch.tools.export_model --prep_path <ckpt> \\
        --out prep.pt2 [--batch_size 8] [--doc_size 400 512] [--device cuda]
@@ -21,6 +27,7 @@ Run: python -m qea_ocr_tpu_torch.tools.export_model --prep_path <ckpt> \\
 Load elsewhere:
     import torch
     import qea_ocr_tpu_torch.ops.conv_cmajor  # only for a cmajor artifact
+    import qea_ocr_tpu_torch.ops.bn_relu      # only for one exported on CUDA
     clean = torch.export.load("prep.pt2").module()
     cleaned = clean(images)   # (B, 1, H, W) float32 in [0, 1], on the
                               # device the artifact was exported on
@@ -40,13 +47,22 @@ from qea_ocr_tpu_torch.utils.device import resolve_device
 from qea_ocr_tpu_torch.utils.io import load_checkpoint
 
 
+def _nodes(exported, target) -> int:
+    return sum(n.op == "call_function" and n.target == target
+               for n in exported.graph.nodes)
+
+
 def conv_flat_nodes(exported) -> int:
     """How many `qea_ocr::conv_flat` calls the exported graph holds (the
     operator is registered by `ops/conv_cmajor.py`, which the UNet
     imports)."""
-    target = torch.ops.qea_ocr.conv_flat.default
-    return sum(n.op == "call_function" and n.target == target
-               for n in exported.graph.nodes)
+    return _nodes(exported, torch.ops.qea_ocr.conv_flat.default)
+
+
+def bn_relu_nodes(exported) -> int:
+    """How many `qea_ocr::bn_relu_eval` calls the exported graph holds
+    (registered by `ops/bn_relu.py`, which the UNet imports)."""
+    return _nodes(exported, torch.ops.qea_ocr.bn_relu_eval.default)
 
 
 def export_prep(prep_path: str, out_path: str, *, batch_size: int = 8,
@@ -68,7 +84,8 @@ def export_prep(prep_path: str, out_path: str, *, batch_size: int = 8,
             "conv_impl": model.conv_impl,
             "cmajor_fused": (fused_by_env() if model.conv_impl == "cmajor"
                              else None),
-            "conv_flat_nodes": conv_flat_nodes(exported)}
+            "conv_flat_nodes": conv_flat_nodes(exported),
+            "bn_relu_nodes": bn_relu_nodes(exported)}
 
 
 def main(argv=None):

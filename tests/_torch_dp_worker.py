@@ -16,7 +16,8 @@ documents, float32 models, one thread a process.
       counts per rank), the warmup's train step, the area path's `phase_b`
       and `prep_pretrain_step`, each against the single-process step on the
       union batch; the warmup and area trainers for an epoch; an
-      indivisible batch; `clean_docs --data_parallel`.
+      indivisible batch; `clean_docs --data_parallel`; the UNet's batch
+      norm + ReLU (`ops/bn_relu.py`) against one process on the union.
   mh  (2 ranks): the patch trainer for an epoch with `data_parallel`, then
       with `tensor_parallel=2`.
   tp4 (4 ranks): `put_tp` on a 2x2 mesh and the two-phase step against the
@@ -400,6 +401,66 @@ def case_area_trainer():
     return res
 
 
+def case_bn_relu():
+    """`ops/bn_relu.bn_relu` in a data group, each rank on its own rows,
+    against one process on the union: the running statistics, the rank's
+    output and input gradient, and its weight and bias gradients, which
+    are the sums over its own rows (`sum_gradients` adds the ranks')."""
+    from torch import nn
+
+    from qea_ocr_tpu_torch.ops.bn_relu import bn_relu
+    from qea_ocr_tpu_torch.parallel.multihost import (
+        data_group, global_numel, global_sum_grad)
+
+    C, n = 8, 3
+    g = torch.Generator().manual_seed(11)
+    ys = torch.randn(WORLD * n, C, 5, 7, generator=g) * 2 + 0.5
+    dzs = torch.randn(WORLD * n, C, 5, 7, generator=g)
+    mine = slice(RANK * n, (RANK + 1) * n)
+
+    def run(y, dz, group):
+        bn = nn.BatchNorm2d(C, eps=1e-5, momentum=0.1)
+        with torch.no_grad():
+            bn.weight.uniform_(0.5, 1.5, generator=torch.Generator()
+                               .manual_seed(12))
+            bn.running_var.fill_(1.5)
+        yi = y.clone().requires_grad_()
+        with data_group(group):
+            z = bn_relu(yi, bn, global_sum_grad, global_numel)
+            z.backward(dz)
+        return bn, z.detach(), yi.grad
+
+    bn, z, dy = run(ys[mine], dzs[mine], WORLD_GROUP)
+    grads = all_gather_objects(torch.stack([bn.weight.grad,
+                                            bn.bias.grad]).tolist())
+    res = dict(same=same_on_every_rank(bn),
+               tracked=int(bn.num_batches_tracked))
+    if RANK == 0:
+        ref, ref_z, ref_dy = run(ys, dzs, None)
+        # the union's gradients from rank 0's rows alone
+        only0 = torch.zeros_like(dzs)
+        only0[mine] = dzs[mine]
+        own = run(ys, only0, None)[0]
+        want = torch.stack([ref.weight.grad, ref.bias.grad])
+        want0 = torch.stack([own.weight.grad, own.bias.grad])
+        got0 = torch.tensor(grads[0])
+        total = torch.tensor(grads).sum(0)
+
+        def gap(a, b):
+            return float((a - b).abs().max() / b.abs().max())
+        res.update(
+            stats_abs=max(float((bn.running_mean - ref.running_mean)
+                                .abs().max()),
+                          float((bn.running_var - ref.running_var)
+                                .abs().max())),
+            z_abs=float((z - ref_z[mine]).abs().max()),
+            dy_abs=float((dy - ref_dy[mine]).abs().max()),
+            grads_total_rel=gap(total, want),
+            grads_own_rel=gap(got0, want0),
+            grads_global_rel=gap(got0, want))
+    return res
+
+
 def case_indivisible():
     from qea_ocr_tpu_torch.train.area_trainer import (
         AreaTrainerConfig, TrainNNPrepArea)
@@ -576,7 +637,7 @@ def case_tp_step():
 MODES = dict(
     dp=(case_patch_step, case_warmup_step, case_area_steps,
         case_warmup_trainer, case_area_trainer, case_indivisible,
-        case_clean_docs),
+        case_clean_docs, case_bn_relu),
     mh=(case_patch_trainer_dp, case_patch_trainer_tp),
     tp4=(case_tp_step,))
 

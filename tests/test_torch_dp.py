@@ -114,3 +114,18 @@ def test_clean_docs_data_parallel_equals_single_process(world):
     assert r0["batch_size"] == r1["batch_size"] == 4
     assert r0["names_dp"] == r0["names_sp"] and len(r0["names_sp"]) == 5
     assert r0["bytes_equal"] and r0["arrays_equal"]
+
+
+def test_bn_relu_normalises_with_the_group_batch(world):
+    """`ops/bn_relu.py` on 2 ranks of 3 rows each against one process on
+    the 6: the running statistics, each rank's output and input gradient
+    within float32 rounding, the same bytes on both ranks, and the weight
+    and bias gradients the rank's own sums (the two ranks' add up to the
+    union's, and rank 0's is not the union's)."""
+    r0, r1 = case(world, "bn_relu")
+    assert r0["same"] and r1["same"]
+    assert r0["tracked"] == r1["tracked"] == 1
+    assert r0["stats_abs"] <= 1e-6
+    assert r0["z_abs"] <= 1e-5 and r0["dy_abs"] <= 1e-5
+    assert r0["grads_total_rel"] <= 1e-5 and r0["grads_own_rel"] <= 1e-5
+    assert r0["grads_global_rel"] > 1e-2

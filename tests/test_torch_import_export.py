@@ -186,7 +186,7 @@ def test_export_reloads_without_the_package(prep_ckpt, tmp_path, capsys):
     assert info == {"out": str(out), "bytes": out.stat().st_size,
                     "input_shape": [2, 1, *DOC], "device": "cpu",
                     "conv_impl": "xla", "cmajor_fused": None,
-                    "conv_flat_nodes": 0}
+                    "conv_flat_nodes": 0, "bn_relu_nodes": 0}
     x = np.random.default_rng(4).random((2, 1, *DOC), np.float32)
     np.save(tmp_path / "x.npy", x)
     # -I: no PYTHONPATH, no current directory; run from outside the repo
@@ -222,6 +222,7 @@ def test_cmajor_export_writes_the_conv_operator(prep_ckpt, tmp_path,
                        "--unet_features", "4", "--device", "cpu"])
     info = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
     assert info["conv_impl"] == "cmajor" and info["conv_flat_nodes"] == 8
+    assert info["bn_relu_nodes"] == 0
     assert info["cmajor_fused"] is (fused == "1")
     assert info["bytes"] == out.stat().st_size
     loaded = torch.export.load(str(out))

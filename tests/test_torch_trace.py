@@ -104,7 +104,9 @@ def test_off_records_nothing_and_changes_nothing():
     with metrics.recording():
         on = twin(x)
     assert on._backward_hooks                          # the mark is a hook
-    assert [s.name for s in metrics.drain()] == ["unet.forward"]
+    # the forward and its 18 batch norms (two a block, nine blocks)
+    assert [s.name for s in metrics.drain()] == (["unet.forward"]
+                                                 + ["unet.norm"] * 18)
     assert _graph(off) == _graph(on)
     assert torch.equal(off, on)
 
@@ -175,8 +177,10 @@ def test_a_profiler_session_turns_spans_on_on_its_clock():
         assert metrics.on()
         unet(x)
     assert not metrics.on()
-    (s,) = metrics.drain()
+    s, *norms = metrics.drain()
     assert s.name == "unet.forward"
+    assert [t.name for t in norms] == ["unet.norm"] * 18
+    assert all(t.parent == s.id for t in norms)
     ops = [e for e in prof.profiler.kineto_results.events()
            if e.name() == "aten::sigmoid"]
     assert ops
@@ -212,7 +216,7 @@ def test_maybe_profile_merges_the_spans(tmp_path):
     with open(tmp_path / "trace.json") as f:
         events = json.load(f)["traceEvents"]
     mine = [e for e in events if e.get("cat") == "program_span"]
-    assert [e["name"] for e in mine] == ["unet.forward"]
+    assert [e["name"] for e in mine] == ["unet.forward"] + ["unet.norm"] * 18
     sig = [e for e in events if e.get("name") == "aten::sigmoid"]
     assert sig and mine[0]["ts"] <= sig[0]["ts"]
     assert sig[0]["ts"] + sig[0]["dur"] <= mine[0]["ts"] + mine[0]["dur"]
